@@ -4,18 +4,23 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``vican_torch/csrc``, holds it against
-its plain PyTorch version at the 10k-camera shapes and times both, then
-drives the public entry point ``vican_torch.bipgo.bipartite_se3sync`` on
-three synthetic problems:
+It builds the port's CUDA kernels from ``vican_torch/csrc`` (one ``nvcc``
+per source, all at once), holds each against its plain PyTorch version at
+the main paths' shapes and times both, then drives two paths:
 
-- A, bench.py's large_shop problem (100 cameras, 10k timesteps, 120k
-  edges), the dense route, checked against the JAX package's accuracy on
-  the same problem;
-- B, 10k cameras / 10k timesteps / 1M edges, the large-graph route, whose
-  CheFSI filter runs on the kernel (launches counted);
-- C, 2048 cameras / 10k timesteps / 240k edges through both routes, which
-  must agree.
+- the solver, ``vican_torch.bipgo.bipartite_se3sync``, on three synthetic
+  problems: A, bench.py's large_shop problem (100 cameras, 10k timesteps,
+  120k edges), the dense route, checked against the JAX package's accuracy
+  on the same problem; B, 10k cameras / 10k timesteps / 1M edges, the
+  large-graph route, whose CheFSI filter runs on the ``pwr_apply`` kernel;
+  C, 2048 cameras / 10k timesteps / 240k edges through both routes, which
+  must agree;
+- perception in device mode, ``vican_torch.perception.estimate_pose_gray``,
+  on 384 frames at 1280x720 (8 cameras around a 24-marker cube, 48
+  timesteps, rendered on the card by ``vican_torch.render``), thresholded by
+  the ``multi_threshold`` kernel; the same frames on the CPU must give the
+  same detections, the edges must be accurate against ground truth, and
+  ``bipartite_se3sync`` on them must recover all 8 cameras.
 
 One JSON line per phase; any failed check raises, so the exit code is not
 0.  The last lines are the card's ``nvidia-smi`` name and power limit, the
@@ -64,10 +69,28 @@ A_TRANS_TOL_M = 1e-3
 KERNEL_REL_TOL = 1e-3  # max |kernel - plain| / max |plain|; see kernel_phase
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
-# dense): device-memory bytes/s and bf16 tensor-core FLOP/s.  The card's
-# name and power limit are printed beside every time.
+# dense): device-memory bytes/s and bf16 tensor-core FLOP/s; and its int32
+# rate, 64 INT32 lanes per SM (Hopper architecture white paper) x 132 SMs x
+# the 1.98 GHz boost clock.  The card's name and power limit are printed
+# beside every time.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+
+# Perception scene: the JAX package's perception-bench recipe
+# (vican_tpu/synthetic.py:273-323: f = 0.55 (W + H), the 24-marker cube of
+# 0.48 * 0.575 m markers tumbling about (0, 0, 1), wander=True, seed 4, 48
+# timesteps at 1280x720) seen by 8 cameras 2.2-2.6 m away, two of them with
+# the 12-coefficient distortion of tests/test_perception.py:132.
+SCENE_RES = (1280, 720)
+SCENE_FRAMES = 48
+SCENE_MARKER = 0.48 * 0.575
+SCENE_DIST = np.array([-0.25, 0.08, 1.5e-3, -1.2e-3, -0.012, -0.02, 0.004, -0.001,
+                       0.0, 0.0, 0.0, 0.0])
+SCENE_DISTORTED = ("1", "5")
+PERCEPTION_KW = dict(aruco="DICT_4X4_1000", marker_size=SCENE_MARKER,
+                     corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+                     batch_size=32, verbose=False)
 
 
 def emit(phase: str, **fields) -> None:
@@ -265,6 +288,192 @@ def profile_phase(prob) -> dict:
     return out
 
 
+def perception_scene(dev):
+    """The smoke's perception scene, rendered on ``dev``: ``(cams, traj,
+    markers, frames (384, 720, 1280) uint8, names, frame_cams)``."""
+    from vican_torch import render
+    from vican_torch.cam import Camera
+
+    W, H = SCENE_RES
+    f = 0.55 * (W + H)
+    K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1.0]])
+    cams = {}
+    for k in range(8):
+        az, r = 2 * np.pi * k / 8, 2.2 + 0.4 * k / 7
+        pos = (r * np.cos(az), r * np.sin(az), 1.0 + 0.3 * (-1) ** k)
+        dist = SCENE_DIST if str(k) in SCENE_DISTORTED else np.zeros(12)
+        cams[str(k)] = Camera(id=str(k), intrinsics=K, distortion=dist.copy(),
+                              extrinsics=render.look_at(pos, (0.0, 0.0, 1.0)),
+                              resolution_x=W, resolution_y=H)
+    traj = render.cube_trajectory(SCENE_FRAMES, seed=4, wander=True)
+    markers = render.make_cube_markers()
+    frames, names, frame_cams = render.render_frames(cams, traj, markers,
+                                                     marker_size=SCENE_MARKER, device=dev)
+    return cams, traj, markers, frames, names, frame_cams
+
+
+def threshold_phase(frames) -> dict:
+    """multi_threshold against its plain version (0 differing bytes) on a
+    32-frame batch of the scene and at ragged shapes, timed beside its
+    bound, the plain version and a library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from vican_torch.ops.threshold import (WIN_SIZES, multi_threshold,
+                                           multi_threshold_plain, pack_bits)
+
+    C = 10.0
+    batch = frames[:32].contiguous()
+
+    def library(g8):
+        # yardstick only: seven average pools of the replicate-padded frame
+        # (float sums, so not exact), the compare and the pack
+        g = g8.float()[:, None]
+        fg = [g <= F.avg_pool2d(F.pad(g, (w // 2,) * 4, mode="replicate"), w, stride=1) - C
+              for w in WIN_SIZES]
+        return pack_bits(torch.cat(fg, dim=1))
+
+    checks = []
+    for name, g in (("scene 32x720x1280", batch),
+                    ("ragged 2x721x1283", _ragged(batch)),
+                    ("B=1", batch[:1].contiguous())):
+        out = multi_threshold(g, WIN_SIZES, C)
+        torch.cuda.synchronize()
+        ref = multi_threshold_plain(g, WIN_SIZES, C)
+        diff = int((out != ref).sum())
+        checks.append({"case": name, "shape": list(g.shape), "differing_bytes": diff,
+                       "max_abs_err": float((out.int() - ref.int()).abs().max())})
+        if diff:
+            raise AssertionError(f"multi_threshold {name}: {diff} bytes differ from plain")
+    ms = _median_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
+    plain_ms = _median_ms(lambda: multi_threshold_plain(batch, WIN_SIZES, C))
+    library_ms = _median_ms(lambda: library(batch))
+    B, H, W = batch.shape
+    nbytes = B * H * W + B * len(WIN_SIZES) * H * (-(-W // 8))
+    # the int32 operations the function needs, not this design's: one
+    # integral image of each replicate-padded frame (2 per entry), g + C
+    # once per pixel, and per window and pixel a 3-term box sum, the scale
+    # and the compare
+    R = max(WIN_SIZES) // 2
+    ops = B * (H + 2 * R) * (W + 2 * R) * 2 + B * H * W * (1 + 5 * len(WIN_SIZES))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_OPS
+    row = dict(shape=list(batch.shape), checks=checks, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bytes=nbytes, ops=ops,
+               bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=max(c["max_abs_err"] for c in checks),
+               differing_bytes=sum(c["differing_bytes"] for c in checks))
+    emit("threshold_kernel", name="multi_threshold", **row)
+    return row
+
+
+def _ragged(batch):
+    """A 2-frame 721 x 1283 batch from the scene's frames (edge rows and
+    columns repeated): W % 8 != 0 and H % 16 != 0."""
+    import torch.nn.functional as F
+
+    g = batch[:2].float()[:, None]
+    return F.pad(g, (0, 3, 0, 1), mode="replicate")[:, 0].to(batch.dtype).contiguous()
+
+
+def perception_phases(dev) -> int:
+    """Drive perception in device mode over the scene on the card, check it
+    against the CPU, against ground truth and through calibration; returns
+    the threshold kernel's launches in the card run."""
+    import torch
+
+    from vican_torch import bipgo
+    from vican_torch.geometry import distance_SO3, optimize_gauge_SE3
+    from vican_torch.ops.shoelace import polygon_area
+    from vican_torch.ops.threshold import multi_threshold
+    from vican_torch.perception import PHASES, estimate_pose_gray
+    from vican_torch.utils import PhaseTimer
+
+    t0 = time.perf_counter()
+    cams, traj, markers, frames, names, frame_cams = perception_scene(dev)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    host = frames.cpu().numpy()  # frames arrive from the host, as decoded files would
+    row = threshold_phase(frames)
+    del frames
+    torch.cuda.empty_cache()
+
+    timer = PhaseTimer(verbose=False, device=dev)
+    multi_threshold.launches = 0
+    t0 = time.perf_counter()
+    edges = estimate_pose_gray(host, names, frame_cams, timer=timer, **PERCEPTION_KW)
+    seconds = time.perf_counter() - t0
+    launches = multi_threshold.launches
+    split = {p: sum(e["seconds"] for e in timer.events if e["name"] == p) for p in PHASES}
+    n_batches = -(-len(names) // PERCEPTION_KW["batch_size"])
+    emit("perception", frames=len(names), resolution=list(SCENE_RES), render_s=render_s,
+         seconds=seconds, images_per_s=len(names) / seconds, phase_s=split,
+         detections=len(edges), kernel_launches=launches, batches=n_batches)
+    if launches != n_batches:
+        raise AssertionError(f"perception: {launches} threshold launches for {n_batches} batches")
+    if len(edges) < 10 * SCENE_FRAMES:
+        raise AssertionError(f"perception: only {len(edges)} detections")
+
+    # the first 8 frames again on the CPU (the kernels' plain versions)
+    t0 = time.perf_counter()
+    cpu = estimate_pose_gray(host[:8], names[:8], frame_cams[:8], device="cpu",
+                             **PERCEPTION_KW)
+    cpu_s = time.perf_counter() - t0
+    first = {k: v for k, v in edges.items() if v["im_filename"] in set(names[:8])}
+    d_corner = max((float(np.abs(first[k]["corners"] - cpu[k]["corners"]).max())
+                    for k in cpu if k in first), default=0.0)
+    emit("perception_cpu", frames=8, seconds=cpu_s, detections_cpu=len(cpu),
+         detections_card=len(first), same_keys=set(cpu) == set(first),
+         max_corner_diff_px=d_corner)
+    if set(cpu) != set(first) or not d_corner < 1e-3:
+        raise AssertionError(f"perception_cpu: keys {set(cpu) ^ set(first)}, "
+                             f"corners {d_corner} px apart")
+
+    # edge accuracy against ground truth (tests/test_perception.py:73-89)
+    rot, tr = [], []
+    for (c, tm), v in edges.items():
+        if v["reprojected_err"] >= 0.1:
+            continue
+        t, m = tm.split("_")
+        gt = cams[c].extrinsics.inv() @ traj[t] @ markers[m]
+        rot.append(distance_SO3(np.asarray(v["pose"].R(), np.float64),
+                                np.asarray(gt.R(), np.float64)))
+        tr.append(float(np.linalg.norm(v["pose"].t() - gt.t())))
+    med_r, med_t = float(np.median(rot)), float(np.median(tr))
+    emit("perception_accuracy", edges_used=len(rot), median_rot_err_deg=med_r,
+         median_trans_err_m=med_t, mean_rot_err_deg=float(np.mean(rot)),
+         mean_trans_err_m=float(np.mean(tr)))
+    if not (len(rot) > 100 and med_r < 2.0 and med_t < 0.02):
+        raise AssertionError(f"perception_accuracy: {len(rot)} edges, medians {med_r} deg, "
+                             f"{med_t} m")
+
+    # calibration on those edges (tests/test_perception.py:96-119)
+    t0 = time.perf_counter()
+    est = bipgo.bipartite_se3sync(
+        edges, constraints=dict(markers),
+        noise_model_r=lambda e: 0.001 * polygon_area(e["corners"]) ** 1.0,
+        noise_model_t=lambda e: 0.001 * polygon_area(e["corners"]) ** 2.0,
+        edge_filter=lambda e: e["reprojected_err"] < 0.15, maxiter=4,
+        lsqr_solver="conjugate_gradient", dtype=np.float64, verbose=False)
+    calib_s = time.perf_counter() - t0
+    found = [c for c in cams if c in est]
+    G = optimize_gauge_SE3([cams[c].extrinsics.inv() for c in found],
+                           [est[c].inv() for c in found])
+    r_err = [distance_SO3(np.asarray(cams[c].extrinsics.R(), np.float64),
+                          np.asarray((G.inv() @ est[c]).R(), np.float64)) for c in found]
+    t_err = [float(np.linalg.norm(cams[c].extrinsics.t() - (G.inv() @ est[c]).t()))
+             for c in found]
+    emit("calibration", seconds=calib_s, cameras_found=len(found), cameras=len(cams),
+         mean_rot_err_deg=float(np.mean(r_err)), mean_trans_err_m=float(np.mean(t_err)),
+         max_rot_err_deg=float(np.max(r_err)), max_trans_err_m=float(np.max(t_err)))
+    if not (len(found) == len(cams) and np.mean(r_err) < 1.5 and np.mean(t_err) < 0.05):
+        raise AssertionError(f"calibration: {len(found)} cameras, mean errors "
+                             f"{np.mean(r_err)} deg, {np.mean(t_err)} m")
+    row["launches"] = launches
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -352,6 +561,8 @@ def main() -> None:
     if not d_cam < 0.2:
         raise AssertionError(f"config C: routes differ by {d_cam} deg")
 
+    th = perception_phases(dev)
+
     w10 = rows[10]
     kernels = [{
         "name": "pwr_apply", "route": "cuda", "source": "vican_torch/csrc/pwr.cu",
@@ -361,6 +572,13 @@ def main() -> None:
         "ms": w10["ms"], "kernel_ms": w10["ms"], "plain_ms": w10["plain_ms"],
         "bound_ms": w10["bound_ms"], "bound_by": w10["bound_by"],
         "library_ms": w10["library_ms"], "w": 10,
+    }, {
+        "name": "multi_threshold", "route": "cuda", "source": "vican_torch/csrc/threshold.cu",
+        "replaces": "vican_tpu/ops/pallas/threshold.py:33",
+        "launches": th["launches"], "max_abs_err": th["max_abs_err"],
+        "differing_bytes": th["differing_bytes"], "ms": th["ms"], "plain_ms": th["plain_ms"],
+        "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],
+        "library_ms": th["library_ms"], "shape": th["shape"],
     }]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)

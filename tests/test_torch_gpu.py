@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from vican_torch import bipgo
+from vican_torch import bipgo, render
+from vican_torch.cam import Camera
 from vican_torch.geometry import distance_SO3
+from vican_torch.ops.threshold import multi_threshold, multi_threshold_plain
+from vican_torch.perception import estimate_pose_gray
 from vican_torch.solver.pwr import filter_operator, pwr_apply, pwr_apply_plain
 from vican_torch.synthetic import make_problem_arrays
 
@@ -65,3 +68,49 @@ def test_large_route_on_the_card_matches_cpu(cuda, monkeypatch):
     # the bars of tests/test_scale.py:205-206 (f32 variants on a noisy fixture)
     assert d_rot < 0.2, d_rot
     assert d_tr < 0.05, d_tr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,C", [
+    (2, 96, 256, 10.0), (1, 73, 130, 10.0), (3, 1, 40, 10.0),
+    (1, 721, 1283, 10.0), (4, 33, 517, 7.5), (2, 200, 331, -2.25),
+])
+def test_threshold_kernel_matches_plain(cuda, B, H, W, C):
+    rng = np.random.default_rng(H + W)
+    # a smooth ramp with noise, so that masks are neither empty nor full
+    ramp = np.linspace(0, 200, W)[None, None, :] + np.linspace(0, 40, H)[None, :, None]
+    img = np.clip(ramp + rng.normal(scale=30, size=(B, H, W)), 0, 255).astype(np.uint8)
+    gray = torch.from_numpy(img).to(cuda)
+    before = multi_threshold.launches
+    out = multi_threshold(gray, thresh_const=C)
+    torch.cuda.synchronize()
+    assert multi_threshold.launches == before + 1
+    ref = multi_threshold_plain(gray, thresh_const=C)
+    assert out.shape == ref.shape == (B, 7, H, -(-W // 8))
+    assert int((out != ref).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_perception_on_the_card_matches_cpu(cuda):
+    """Three frames from the port's renderer: the gray-batch stage on the
+    card (the threshold kernel) and on the CPU (its plain version) find the
+    same detections."""
+    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
+    cams = {str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
+                           extrinsics=render.look_at(pos, (0, 0, 1.0)),
+                           resolution_x=640, resolution_y=360)
+            for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
+    frames, names, frame_cams = render.render_frames(
+        cams, render.cube_trajectory(1, seed=3), render.make_cube_markers(),
+        marker_size=0.138, device=cuda)
+    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
+              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+              batch_size=4, verbose=False)
+    before = multi_threshold.launches
+    gpu = estimate_pose_gray(frames, names, frame_cams, **kw)
+    assert multi_threshold.launches == before + 1
+    cpu = estimate_pose_gray(frames.cpu(), names, frame_cams, device="cpu", **kw)
+    assert len(cpu) > 5
+    assert set(gpu) == set(cpu)
+    for k in cpu:
+        np.testing.assert_allclose(gpu[k]["corners"], cpu[k]["corners"], rtol=0, atol=1e-3)

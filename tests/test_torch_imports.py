@@ -1,5 +1,5 @@
-"""The port stands alone: importing it, its solver and the chip smoke test
-pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
+"""The port stands alone: importing it, its solver, its perception and the
+chip smoke test pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
 since this test process has both loaded)."""
 import os
 import subprocess
@@ -13,6 +13,8 @@ def test_port_imports_neither_jax_nor_vican_tpu():
         "import sys\n"
         "import vican_torch, vican_torch.bipgo, vican_torch.solver.scale\n"
         "import vican_torch.solver.pwr, vican_torch._kernels, vican_torch.synthetic\n"
+        "import vican_torch.perception, vican_torch.cam, vican_torch.render\n"
+        "import vican_torch.ops.detect, vican_torch.ops.pnp, vican_torch.ops.threshold\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vican_tpu'))\n"

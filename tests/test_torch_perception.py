@@ -1,0 +1,156 @@
+"""The perception slice as a whole: the port's ``estimate_pose_mp`` (device
+mode, on the CPU) against the JAX package's device mode on the same
+rendered files, and the port's renderer against the JAX package's."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+cv = pytest.importorskip("cv2")
+
+from vican_tpu.cam import Camera, estimate_pose_mp
+from vican_tpu.dataset import Dataset
+from vican_tpu.geometry import SE3, distance_SO3, rodrigues
+from vican_tpu.render import look_at, make_cube_markers, render_dataset, render_image
+from vican_torch import cam as TC
+from vican_torch import perception as TP
+from vican_torch import render as TR
+
+MARKER_SIZE = 0.138
+DIST = np.array([-0.25, 0.08, 1.5e-3, -1.2e-3, -0.012, -0.02, 0.004, -0.001,
+                 0.0, 0.0, 0.0, 0.0])  # tests/test_perception.py:132
+KW = dict(aruco="DICT_4X4_1000", marker_size=MARKER_SIZE,
+          corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+          brightness=0, contrast=0, batch_size=4, verbose=False)
+
+
+def _cams(distorted_last=False):
+    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
+    cams = {}
+    for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)]):
+        dist = DIST if distorted_last and i == 2 else np.zeros(12)
+        cams[str(i)] = Camera(id=str(i), intrinsics=K, distortion=dist.copy(),
+                              extrinsics=look_at(pos, (0, 0, 1.0)),
+                              resolution_x=640, resolution_y=360)
+    return cams
+
+
+def _traj(n, seed):
+    rng = np.random.default_rng(seed)
+    traj = {}
+    for t in range(n):
+        v = rng.normal(size=3)
+        v = v / np.linalg.norm(v) * rng.uniform(0, np.pi)
+        traj[str(t)] = SE3(R=rodrigues(v), t=np.array(
+            [rng.uniform(-0.4, 0.4), rng.uniform(-0.4, 0.4), 1.0 + rng.uniform(-0.2, 0.2)]))
+    return traj
+
+
+def _port_cams(cams):
+    return [TC.Camera(id=c.id, intrinsics=c.intrinsics, distortion=c.distortion,
+                      extrinsics=c.extrinsics, resolution_x=c.resolution_x,
+                      resolution_y=c.resolution_y) for c in cams]
+
+
+def _assert_same_edges(ref, out):
+    assert len(ref) > 10
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(out[k]["corners"], ref[k]["corners"], rtol=0, atol=1e-3)
+        d = distance_SO3(np.asarray(out[k]["pose"].R(), np.float64),
+                         np.asarray(ref[k]["pose"].R(), np.float64))
+        assert d < 0.01, (k, d)
+        np.testing.assert_allclose(out[k]["pose"].t(), ref[k]["pose"].t(), rtol=0, atol=1e-4)
+        assert abs(out[k]["reprojected_err"] - ref[k]["reprojected_err"]) < 1e-3
+        assert out[k]["im_filename"] == ref[k]["im_filename"]
+
+
+@pytest.fixture(scope="module")
+def rendered(tmp_path_factory):
+    """3 cameras (one with the 12-coefficient distortion) x 2 timesteps at
+    640x360, rendered to JPEGs by vican_tpu.render (as
+    tests/test_perception.py:22-43 does)."""
+    root = str(tmp_path_factory.mktemp("render") / "ds")
+    render_dataset(root, _cams(distorted_last=True), _traj(2, 3), make_cube_markers(),
+                   marker_size=MARKER_SIZE, marker_px=120)
+    return Dataset(root)
+
+
+def test_estimate_pose_mp_matches_jax_device_mode(rendered):
+    files, cams = rendered.im_data["filename"], rendered.im_data["cam"]
+    ids = [str(i) for i in range(20)]
+    ref = estimate_pose_mp(files, cams, pipeline_mode="device", marker_ids=ids, **KW)
+    out = TC.estimate_pose_mp(files, _port_cams(cams), marker_ids=ids, device="cpu", **KW)
+    _assert_same_edges(ref, out)
+    # output order follows the batches and slots, as in JAX
+    assert list(out) == list(ref)
+
+
+def test_port_renderer_matches_opencv_renderer():
+    """The port's torch renderer against vican_tpu.render.render_image (cv2)
+    on the same cameras and scenes: measured 0.9984-0.9993 of pixels equal
+    and at most 4 grey levels apart (edge pixels, where cv2's fixed-point
+    arithmetic rounds differently)."""
+    cams = _cams(distorted_last=True)
+    markers = make_cube_markers()
+    tiles = TR.marker_tiles(list(markers))
+    equal = []
+    for cam, obj in zip(cams.values(), _traj(3, 7).values()):
+        world = {m: obj @ p for m, p in markers.items()}
+        ref = render_image(cam, world, tiles, MARKER_SIZE)
+        out = TR.render_image(cam, world, tiles, MARKER_SIZE, device="cpu").numpy()
+        assert out.shape == ref.shape[:2] and out.dtype == np.uint8
+        diff = np.abs(out.astype(int) - ref[..., 0].astype(int))
+        assert diff.max() <= 8
+        equal.append((diff == 0).mean())
+    assert min(equal) > 0.998, equal
+
+
+def test_port_frames_detected_like_jax(tmp_path):
+    """Frames from the port's renderer: the port's gray-batch stage and the
+    JAX device mode (reading the same frames as lossless PNGs) give the same
+    edges; the file stage agrees with the gray stage."""
+    cams = _cams(distorted_last=True)
+    frames, names, frame_cams = TR.render_frames(cams, _traj(2, 11), make_cube_markers(),
+                                                 marker_size=MARKER_SIZE, device="cpu")
+    files = []
+    for img, name in zip(frames.numpy(), names):
+        path = os.path.join(str(tmp_path), name.replace(".jpg", ".png"))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cv.imwrite(path, img)
+        files.append(path)
+    kw = {k: v for k, v in KW.items() if k not in ("brightness", "contrast")}
+    ref = estimate_pose_mp(files, frame_cams, pipeline_mode="device", marker_ids=None,
+                           brightness=0, contrast=0, **kw)
+    out = TP.estimate_pose_gray(frames, files, _port_cams(frame_cams), device="cpu", **kw)
+    _assert_same_edges(ref, out)
+    via_files = TC.estimate_pose_mp(files, _port_cams(frame_cams), marker_ids=None,
+                                    device="cpu", brightness=0, contrast=0, **kw)
+    assert list(via_files) == list(out)
+
+
+def test_estimate_pose_worker_is_one_frame_of_the_batch(rendered):
+    files, cams = rendered.im_data["filename"][:3], _port_cams(rendered.im_data["cam"][:3])
+    args = {k: v for k, v in KW.items() if k not in ("batch_size", "verbose")}
+    batch = TC.estimate_pose_mp(files, cams, marker_ids=None, device="cpu", **KW)
+    one = TC.estimate_pose_worker(files[1], cams[1], device="cpu", **args)
+    assert one and set(one) == {k for k, v in batch.items() if v["im_filename"] == files[1]}
+    for k in one:
+        np.testing.assert_array_equal(one[k]["corners"], batch[k]["corners"])
+
+
+def test_unported_modes_and_missing_card_raise(rendered, monkeypatch):
+    files, cams = rendered.im_data["filename"][:1], _port_cams(rendered.im_data["cam"][:1])
+    for mode in ("roi", "host", "pure"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode=mode,
+                                device="cpu", **KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TC.estimate_pose_mp(files, cams, marker_ids=None, mesh=object(), device="cpu", **KW)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC.estimate_pose_mp(files, cams, marker_ids=None, **KW)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TR.render_frames({"0": cams[0]}, _traj(1, 3), make_cube_markers(),
+                         marker_size=MARKER_SIZE)

@@ -31,10 +31,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source -> {C function: argtypes}; the CUDA stream is appended to each call
 SOURCES = {
     "pwr": {"pwr_apply_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "threshold": {"threshold_pack_u8": [_P, _P, *[_I] * 14, _F, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -106,13 +107,14 @@ def _load(name: str) -> ctypes.CDLL:
 def launch(name: str, fn: str, *args) -> None:
     """Call C function ``fn`` of source ``name`` on the current CUDA stream.
 
-    Tensors pass as device pointers, ints as C ints; the tensors' device is
-    the launch device.  Raises if the launch reports a CUDA error.
+    Tensors pass as device pointers, floats as C floats, other scalars as C
+    ints; the tensors' device is the launch device.  Raises if the launch
+    reports a CUDA error.
     """
     lib = _load(name)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else int(a)
-             for a in args]
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else a if isinstance(a, float) else int(a) for a in args]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, fn)(*cargs, ctypes.c_void_p(stream))

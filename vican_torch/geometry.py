@@ -14,6 +14,7 @@ from typing import Iterable
 import numpy as np
 
 __all__ = [
+    "rodrigues",
     "rad2deg",
     "angle",
     "distance_SO3",
@@ -21,6 +22,18 @@ __all__ = [
     "optimize_gauge_SO3",
     "optimize_gauge_SE3",
 ]
+
+
+def rodrigues(vec: np.ndarray) -> np.ndarray:
+    """Axis-angle vector -> 3x3 rotation matrix, in closed form (the
+    reference calls ``cv.Rodrigues``, geometry.py:29)."""
+    vec = np.asarray(vec, dtype=np.float64).reshape(3)
+    theta = np.linalg.norm(vec)
+    if theta < 1e-12:
+        return np.eye(3)
+    k = vec / theta
+    K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
 
 
 def rad2deg(rad: float) -> float:

@@ -1,8 +1,9 @@
 """Batched SO(3) ops on tensors (any leading batch dimensions).
 
-The port of ``vican_tpu.ops.lie``'s solver subset: quaternion decoding, the
-one-sided Jacobi 3x3 SVD with its SO(3) projection, rotation angles, and
-the Procrustes gauge.  Every function runs on the device of its input.
+The port of ``vican_tpu.ops.lie``'s solver and PnP subset: the skew matrix,
+Rodrigues and its inverse, quaternion decoding, the one-sided Jacobi 3x3
+SVD with its SO(3) projection, rotation angles, and the Procrustes gauge.
+Every function runs on the device of its input.
 """
 from __future__ import annotations
 
@@ -11,6 +12,9 @@ import math
 import torch
 
 __all__ = [
+    "hat",
+    "rodrigues",
+    "so3_log",
     "quat_to_mat",
     "svd3_so3",
     "project_so3",
@@ -18,6 +22,58 @@ __all__ = [
     "distance_so3",
     "gauge_procrustes_so3",
 ]
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrices of ``(..., 3)`` vectors -> ``(..., 3, 3)``."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rodrigues(vec: torch.Tensor) -> torch.Tensor:
+    """Axis-angle ``(..., 3)`` -> rotation matrices ``(..., 3, 3)``, with the
+    series forms of ``sin(t)/t`` and ``(1-cos(t))/t^2`` near zero, so forward
+    derivatives stay finite there (``vican_tpu.ops.lie.rodrigues``)."""
+    theta2 = torch.sum(vec * vec, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, 1e-32))
+    small = theta2 < 1e-16
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    K = hat(vec)
+    eye = torch.eye(3, dtype=vec.dtype, device=vec.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices ``(..., 3, 3)`` -> axis-angle ``(..., 3)``: the
+    inverse of :func:`rodrigues`, guarded near 0 and near pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    # the antisymmetric part is 2 sin(theta) * axis
+    w = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    scale_generic = theta / torch.clamp_min(2.0 * torch.sin(theta), 1e-12)
+    scale_small = 0.5 + theta * theta / 12.0
+    near_pi = cos_t < -1.0 + 1e-6
+    generic = w * torch.where(theta < 1e-6, scale_small, scale_generic)[..., None]
+    # near pi: the axis is the dominant column of R + I, signed like w
+    B = R + torch.eye(3, dtype=R.dtype, device=R.device)
+    col = torch.argmax(torch.linalg.vector_norm(B, dim=-2), dim=-1)
+    axis = torch.take_along_dim(B, col[..., None, None], dim=-1)[..., 0]
+    axis = axis / torch.clamp_min(torch.linalg.vector_norm(axis, dim=-1, keepdim=True), 1e-12)
+    sign = torch.where(torch.sum(axis * w, dim=-1, keepdim=True) < 0, -1.0, 1.0)
+    return torch.where(near_pi[..., None], axis * sign * theta[..., None], generic)
 
 
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,748 @@
+"""Batched perception in device mode: frames -> camera-marker edge dict.
+
+The port of ``vican_tpu.perception`` in its ``"device"`` pipeline mode,
+the mode the JAX package recommends for an accelerator on PCIe
+(vican_tpu/perception.py:21-26).  Per batch of frames:
+
+1. upload the uint8 gray batch to the card;
+2. threshold it at every window size in ONE launch of the CUDA kernel
+   ``vican_torch/csrc/threshold.cu`` (:func:`vican_torch.ops.threshold.
+   multi_threshold`), which returns bit-packed masks;
+3. fetch the packed masks (W/8 bytes per row and window) to the host;
+4. extract quad candidates on the host (scipy.ndimage labeling, the path
+   the JAX package proves bit-identical to its C labeler);
+5. refine, decode and deduplicate the candidates on the card over the
+   resident frame (:mod:`vican_torch.ops.detect`);
+6. solve each detection's pose (:mod:`vican_torch.ops.pnp`) and fetch one
+   packed result buffer;
+7. fill the reference edge dict (cam.py:120-124 schema).
+
+:func:`estimate_pose_gray` is the stage that takes gray uint8 frames;
+:func:`estimate_pose_batched` decodes image files with OpenCV (imported
+only when it is called) and feeds it.  The ``roi``, ``host`` and ``pure``
+modes and ``mesh=`` are not ported yet (ROADMAP section 1).
+
+Corner convention: corners are the physical marker boundary (intensity
+transition midpoint), as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .cam import Camera, gen_marker_uid
+from .geometry import SE3
+from .utils import PhaseTimer, no_tf32, resolve_device
+from .utils.registry import CORNER_REFINE, PNP_FLAGS, resolve
+
+__all__ = [
+    "estimate_pose_batched",
+    "estimate_pose_gray",
+    "load_images",
+    "host_preprocess",
+    "quads_from_masks",
+    "quads_from_packed_masks",
+    "PHASES",
+]
+
+# the per-batch phases of the device mode, in order (PhaseTimer names)
+PHASES = ("upload", "threshold kernel", "masks to host", "host candidates",
+          "detect program", "PnP", "dict")
+
+
+def load_images(filenames: Iterable[str], grayscale: bool = False) -> np.ndarray:
+    """Host JPEG decode into a uint8 (B, H, W, 3) BGR batch.
+
+    ``grayscale=True`` decodes straight to (B, H, W) gray — ~3x faster for
+    JPEG (libjpeg skips chroma upsampling + the BGR round trip; measured
+    8.7 -> 2.8 ms/img at 720p).  Used when brightness == contrast == 0, so
+    the color->gray preprocess is the identity transform anyway.  For
+    chroma-subsampled color JPEGs libjpeg's Y channel can differ by +-1
+    from cvtColor(BGR2GRAY) of the color decode; every pipeline mode shares
+    this loader, so cross-mode detection equality is unaffected.
+    """
+    import cv2 as cv
+
+    flag = cv.IMREAD_GRAYSCALE if grayscale else cv.IMREAD_COLOR
+    ims = []
+    for fn in filenames:
+        im = cv.imread(fn, flag)
+        if im is None:
+            raise FileNotFoundError(f"could not read image: {fn}")
+        ims.append(im)
+    shapes = {im.shape for im in ims}
+    if len(shapes) != 1:
+        raise ValueError(
+            f"mixed image shapes in batch: {shapes}. Cameras that declare "
+            "resolution_x/y must match their image files; cameras with "
+            "undeclared resolution are grouped by actual image size "
+            "automatically (see estimate_pose_batched)."
+        )
+    return np.stack(ims)
+
+
+def _probe_image_size(fn: str) -> tuple[int, int]:
+    """Actual image size ``(H, W)`` from the file header (no full decode;
+    falls back to a cv2 decode when PIL is unavailable)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        import cv2 as cv
+
+        im = cv.imread(fn)
+        if im is None:
+            raise FileNotFoundError(f"could not read image: {fn}") from None
+        return im.shape[:2]
+
+    with Image.open(fn) as im:
+        w, h = im.size
+        try:
+            orientation = im.getexif().get(0x0112, 1)
+        except Exception:
+            orientation = 1
+    # cv2.imread applies EXIF orientation when decoding; 90-degree
+    # orientations (5-8) swap the decoded H/W relative to the header size,
+    # so the probe must match or a rotated JPEG in a resolution-less rig
+    # would group under a transposed key and fail with a mixed-shape error
+    if orientation in (5, 6, 7, 8):
+        w, h = h, w
+    return (h, w)
+
+
+def host_preprocess(images: np.ndarray, brightness: float, contrast: float) -> np.ndarray:
+    """Reference contrast/brightness + BGR grayscale, on host (uint8 out).
+
+    Bit-matches cam.py:137-145: int16 scale, clip, uint8 truncation, then
+    OpenCV BGR2GRAY.
+    """
+    import cv2 as cv
+
+    if contrast == 0 and brightness == 0:
+        # the transform is the identity on uint8 (x + 0, clip, truncate);
+        # skipping the float32 round trip saves ~12 ms/image on one core
+        x = images
+    else:
+        x = images.astype(np.float32)
+        if contrast != 0:
+            x = x * (contrast / 127.0 + 1.0) - contrast
+        x = x + brightness
+        x = np.clip(x, 0.0, 255.0).astype(np.uint8)
+    if x.ndim == 4 and x.shape[-1] == 3:
+        x = np.stack([cv.cvtColor(im, cv.COLOR_BGR2GRAY) for im in x])
+    return x
+
+
+def _quad_gates(quads: np.ndarray, areas: np.ndarray, H: int, W: int, params) -> np.ndarray:
+    """Vectorized candidate validity gates (same rules as ops.detect.extract_quads)."""
+    x = quads[..., 0]
+    y = quads[..., 1]
+    x2 = np.roll(x, -1, axis=-1)
+    y2 = np.roll(y, -1, axis=-1)
+    shoelace = np.sum(x * y2 - x2 * y, axis=-1)
+    quad_area = 0.5 * np.abs(shoelace)
+    edges = np.roll(quads, -1, axis=-2) - quads
+    edge_len = np.linalg.norm(edges, axis=-1)
+    e_next = np.roll(edges, -1, axis=-2)
+    crosses = edges[..., 0] * e_next[..., 1] - edges[..., 1] * e_next[..., 0]
+    convex = (crosses > 0).all(-1) | (crosses < 0).all(-1)
+    m = params.border_margin
+    inside = (
+        (quads[..., 0] >= m).all(-1)
+        & (quads[..., 0] <= W - 1 - m).all(-1)
+        & (quads[..., 1] >= m).all(-1)
+        & (quads[..., 1] <= H - 1 - m).all(-1)
+    )
+    fill = areas / np.maximum(quad_area, 1.0)
+    # Solid-enough blob OR a ring/outline: large markers hollow under the
+    # adaptive threshold (window << border-ring thickness leaves only a
+    # ~win/2 band along each edge), so their component is a thin square
+    # annulus whose fill ratio drops with marker size.  An annulus of
+    # thickness t has area ~ t * perimeter — accept components at least
+    # 1 px "thick" along their quad outline, but ONLY at the quad sizes
+    # where hollowing can occur (ring thickness = side/6 exceeding the
+    # largest window), so ordinary-size junk keeps facing the fill gate
+    # (OpenCV's contour extraction has no fill gate; decode is the backstop).
+    perim = edge_len.sum(-1)
+    min_hollow_side = 4.0 * max(params.win_sizes)
+    outline = (areas >= np.maximum(perim, 1.0)) & (
+        quad_area >= min_hollow_side * min_hollow_side
+    )
+    return (
+        (areas >= params.min_area)
+        & (edge_len.min(-1) >= 5.0)
+        & inside
+        & convex
+        & ((fill > 0.2) | outline)
+    )
+
+
+def _convex_hull(pts: np.ndarray) -> np.ndarray:
+    """Andrew monotone chain over integer points sorted lexicographically
+    by (x, y) (exact integer cross products; collinear points dropped)."""
+    def half(points):
+        out: list = []
+        for px, py in points:
+            while len(out) >= 2:
+                ax, ay = out[-2]
+                bx, by = out[-1]
+                if (bx - ax) * (py - ay) - (by - ay) * (px - ax) <= 0:
+                    out.pop()
+                else:
+                    break
+            out.append((px, py))
+        return out
+
+    if len(pts) <= 2:
+        return pts
+    plist = [(int(x), int(y)) for x, y in pts]  # python ints: ~4x faster loop
+    lower = half(plist)
+    upper = half(plist[::-1])
+    return np.asarray(lower[:-1] + upper[:-1])
+
+
+def _max_area_quad(hull: np.ndarray) -> np.ndarray:
+    """Maximum-area quadrilateral with vertices on the convex hull: for
+    every vertex pair (a, b) take the farthest hull point on each side of
+    the a->b line (the max-area completion for that diagonal/edge), keep
+    the best.  O(h^2) over the (small) hull."""
+    h = len(hull)
+    best_area = -1.0
+    best = hull[[0, 0, 0, 0]] if h < 4 else None
+    for i in range(h - 1):
+        dx = hull[:, 0] - hull[i, 0]
+        dy = hull[:, 1] - hull[i, 1]
+        ex, ey = dx[i + 1:], dy[i + 1:]  # a->b vectors for every j > i
+        cr = dx[:, None] * ey[None, :] - dy[:, None] * ex[None, :]
+        up, dn = cr.argmax(0), cr.argmin(0)
+        cols = np.arange(cr.shape[1])
+        areas = np.abs(cr[up, cols]) + np.abs(cr[dn, cols])
+        jr = int(np.argmax(areas))
+        if areas[jr] > best_area:
+            best_area = float(areas[jr])
+            best = np.stack([hull[i], hull[up[jr]], hull[i + 1 + jr],
+                             hull[dn[jr]]])
+    return np.asarray(best, np.float64)
+
+
+def _refit_degenerate_quad(mask, quad, area, H, W, conn4=False):
+    """Re-fit a candidate whose farthest-point quad degenerated.
+
+    At extreme oblique view angles a marker's long SIDE exceeds its
+    diagonal, so "farthest from p1" lands on the adjacent long-side corner
+    instead of the diagonal one and two extracted corners collapse (the
+    min-edge gate then rejects the candidate outright).  OpenCV escapes
+    through the AprilTag quad detector's gradient clustering
+    (reference cam.py:147); the geometric equivalent here is the
+    MAXIMUM-AREA QUADRILATERAL ON THE COMPONENT'S CONVEX HULL, which
+    recovers the true corners to ~1 px on these shapes.  Shared by the C
+    and scipy extractor paths (operates downstream of both); the decode
+    stage remains the backstop, so a bad re-fit can never produce a false
+    id.  Returns the re-fit quad (float64 (4, 2)) or None.
+    """
+    from scipy import ndimage
+
+    x0, x1 = float(quad[:, 0].min()), float(quad[:, 0].max())
+    y0, y1 = float(quad[:, 1].min()), float(quad[:, 1].max())
+    margin = 32  # the expansion loop below widens if the component is clipped
+    for _expand in range(4):
+        ax0, ay0 = max(0, int(x0) - margin), max(0, int(y0) - margin)
+        ax1, ay1 = min(W, int(x1) + margin + 1), min(H, int(y1) + margin + 1)
+        crop = mask[ay0:ay1, ax0:ax1]
+        # connectivity must match the slot class, or the area check can
+        # never pass: split slots carry 4-connected sub-components whose
+        # area is a strict subset of their 8-connected parent
+        structure = None if conn4 else np.ones((3, 3), np.int32)
+        lab, _n = ndimage.label(crop, structure=structure)
+        cx, cy = int(quad[0, 0]) - ax0, int(quad[0, 1]) - ay0
+        if not (0 <= cy < lab.shape[0] and 0 <= cx < lab.shape[1]):
+            return None
+        lid = lab[cy, cx]
+        if lid == 0:
+            return None
+        sel = lab == lid
+        if int(sel.sum()) == int(area):
+            break  # full component inside the crop
+        # Widen ONLY when the component is clipped by a crop edge that is
+        # not also an image edge; any other area mismatch means the corner
+        # pixel landed in a different component — give up (rare).
+        clipped = ((ay0 > 0 and sel[0].any())
+                   or (ay1 < H and sel[-1].any())
+                   or (ax0 > 0 and sel[:, 0].any())
+                   or (ax1 < W and sel[:, -1].any()))
+        if not clipped:
+            return None
+        margin *= 2
+    else:
+        return None
+    ys, xs = np.nonzero(sel)  # row-major: ys sorted, xs ascending per row
+    rows, first = np.unique(ys, return_index=True)
+    last = np.r_[first[1:], ys.size] - 1
+    # hull vertices are per-row x-extremes; integer coords, global frame
+    pts = np.unique(np.concatenate([
+        np.stack([xs[first] + ax0, rows + ay0], 1),
+        np.stack([xs[last] + ax0, rows + ay0], 1),
+    ]), axis=0)
+    hull = _convex_hull(pts)
+    if len(hull) < 4:
+        return None
+    return _max_area_quad(hull.astype(np.float64))
+
+
+def quads_from_masks(fg: np.ndarray, params) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Union-find quad candidates from a (B, Wn, H, W) foreground batch.
+
+    Returns ``(quads (B, Q, 4, 2) float32, valid (B, Q) bool, areas)`` with
+    ``Q = Wn * (max_candidates + max_candidates_4conn)``; quads are
+    clockwise-wound and gated.  The JAX package extracts them in C
+    (fastccl.c) and proves the scipy.ndimage extractor below bit-identical
+    to it, 4-connected split candidates included; the port has only the
+    scipy path (the C labeler is on ROADMAP section 1).
+    """
+    B = fg.shape[0]
+    H, W = fg.shape[2], fg.shape[3]
+    K2 = params.max_candidates_4conn
+    max_area = params.max_area_rate * H * W
+
+    def extract(b, wi):
+        return _candidates_scipy(fg[b, wi], params.max_candidates, K2,
+                                 params.min_area, max_area)
+
+    return _collect_window_candidates(B, fg.shape[1], H, W, params, extract,
+                                      K2=K2, mask_of=lambda b, wi: fg[b, wi])
+
+
+def _candidates_scipy(fg: np.ndarray, K: int, K2: int, min_area, max_area):
+    """scipy.ndimage fallback for fastccl.c — bit-identical by construction.
+
+    Mirrors the C kernel's semantics exactly (see fastccl.c for why each
+    step is tie-break-safe):
+
+    - component numbering: ``ndimage.label`` assigns labels in raster-scan
+      order of first encounter, matching the C slot order (roots keep the
+      minimum run index);
+    - top-K: the C ``top_k`` is replicated literally — no sort at all when
+      at most K candidates pass the area filter (scan order kept), else a
+      first-max selection sort whose swaps are tie-UNstable;
+    - corners: the C kernel evaluates run ENDPOINTS in (y, x) scan order
+      with strict comparisons; a full pixel sweep in the same order picks
+      the same points because every selection metric (squared distance,
+      signed cross product) is convex/linear in x along a run — an interior
+      pixel can never strictly beat both endpoints, and first-max/argmax
+      tie-breaking coincides;
+    - splits: 4-connected components that are strict subsets of their
+      8-connected parent (area4 < area8), as in quad_candidates_packed2.
+    """
+    from scipy import ndimage
+
+    fg = np.ascontiguousarray(fg, dtype=np.uint8)
+    lab8, n8 = ndimage.label(fg, structure=np.ones((3, 3), np.int32))
+    corners = np.zeros((K + K2, 4, 2), np.float32)
+    areas_out = np.zeros((K + K2,), np.int32)
+    lo, hi = int(min_area), int(max_area)  # C casts both to int32
+
+    def emit(lab, keep_ids, Kslots, base):
+        objs = ndimage.find_objects(lab)
+        for a, lid in enumerate(keep_ids[:Kslots]):
+            sl = objs[lid - 1]
+            ys, xs = np.nonzero(lab[sl] == lid)  # (y, x) scan order
+            xs = xs.astype(np.float64) + sl[1].start
+            ys = ys.astype(np.float64) + sl[0].start
+            area = xs.shape[0]
+            cx = xs.sum() / area
+            cy = ys.sum() / area
+            i1 = np.argmax((xs - cx) * (xs - cx) + (ys - cy) * (ys - cy))
+            p1x, p1y = xs[i1], ys[i1]
+            i2 = np.argmax((xs - p1x) * (xs - p1x) + (ys - p1y) * (ys - p1y))
+            p2x, p2y = xs[i2], ys[i2]
+            dx, dy = p2x - p1x, p2y - p1y
+            c = (xs - p1x) * dy - (ys - p1y) * dx
+            i3, i4 = np.argmax(c), np.argmin(c)
+            corners[base + a] = [[p1x, p1y], [xs[i3], ys[i3]],
+                                 [p2x, p2y], [xs[i4], ys[i4]]]
+            areas_out[base + a] = area
+        return min(len(keep_ids), Kslots)
+
+    def top_k_c(ids, areas, Kslots):
+        # The C top_k sorts ONLY when more than K candidates pass the
+        # filter (otherwise scan order is kept), and its selection sort
+        # swaps (first-max, swap-unstable) — replicate both exactly.
+        ids = list(ids)
+        if len(ids) > Kslots:
+            for a in range(Kslots):
+                best = a
+                for b in range(a + 1, len(ids)):
+                    if areas[ids[b]] > areas[ids[best]]:
+                        best = b
+                ids[a], ids[best] = ids[best], ids[a]
+            ids = ids[:Kslots]
+        return np.asarray(ids, np.int64) + 1  # 0-based -> label ids
+
+    area8 = np.bincount(lab8.ravel(), minlength=n8 + 1)[1:]
+    kept8 = np.nonzero((area8 >= lo) & (area8 <= hi))[0]
+    nkeep8 = emit(lab8, top_k_c(kept8, area8, K), K, 0)
+
+    nkeep4 = 0
+    if K2 > 0:
+        lab4, n4 = ndimage.label(fg)  # default structure = 4-connectivity
+        if n4 > n8:  # otherwise every 4-conn component == its 8-conn parent
+            area4 = np.bincount(lab4.ravel(), minlength=n4 + 1)[1:]
+            # 8-conn parent area looked up at each 4-component's first pixel
+            flat4 = lab4.ravel()
+            idx = np.nonzero(flat4)[0]
+            _, firsts = np.unique(flat4[idx], return_index=True)  # labels 1..n4
+            parent8 = area8[lab8.ravel()[idx[firsts]] - 1]
+            kept4 = np.nonzero(
+                (area4 >= lo) & (area4 <= hi) & (area4 < parent8)
+            )[0]
+            nkeep4 = emit(lab4, top_k_c(kept4, area4, K2), K2, K)
+
+    return corners.tobytes(), areas_out.tobytes(), nkeep8, nkeep4
+
+
+def _collect_window_candidates(B, Wn, H, W, params, extract, K2=0,
+                               mask_of=None):
+    """Shared tail of the C candidate extractors: collect per-(image,
+    window) quads into fixed slots, enforce clockwise winding, apply the
+    validity gates.  ``extract(b, wi) -> (corners_bytes, area_bytes, n)``
+    or, with ``K2 > 0`` extra 4-conn split slots per window,
+    ``-> (corners_bytes, area_bytes, n8, n4)``.  ``mask_of(b, wi)`` (when
+    given) provides the window's foreground mask so gate-rejected
+    candidates can be re-fit (see :func:`_refit_degenerate_quad`)."""
+    K = params.max_candidates
+    Ks = K + K2
+    quads = np.zeros((B, Wn * Ks, 4, 2), np.float32)
+    areas = np.zeros((B, Wn * Ks), np.float32)
+    valid = np.zeros((B, Wn * Ks), bool)
+    for b in range(B):
+        for wi in range(Wn):
+            out = extract(b, wi)
+            c_bytes, a_bytes = out[0], out[1]
+            q = np.frombuffer(c_bytes, np.float32).reshape(Ks, 4, 2)
+            a = np.frombuffer(a_bytes, np.int32)
+            sl = wi * Ks
+            quads[b, sl : sl + Ks] = q
+            areas[b, sl : sl + Ks] = a
+            valid[b, sl : sl + out[2]] = True
+            if K2 > 0:
+                valid[b, sl + K : sl + K + out[3]] = True
+
+    # enforce clockwise winding (image coords): positive shoelace
+    x = quads[..., 0]
+    y = quads[..., 1]
+    shoelace = np.sum(x * np.roll(y, -1, -1) - np.roll(x, -1, -1) * y, axis=-1)
+    flip = shoelace < 0
+    quads[flip] = quads[flip][:, [0, 3, 2, 1]]
+
+    emitted = valid
+    valid = emitted & _quad_gates(quads, areas, H, W, params)
+
+    if mask_of is not None:
+        # Degenerate-extraction recovery: an extractor-emitted candidate
+        # that the shape gates reject may be an extreme-oblique marker
+        # whose farthest-point corners collapsed; re-fit the max-area
+        # hull quad and re-gate (decode is the backstop downstream).
+        # Trigger ONLY on the degeneracy signature — a collapsed corner
+        # pair (tiny edge) or a non-convex corner order — so ordinary
+        # fill-gate junk never pays the re-fit (scipy label on a crop).
+        edges_ = np.roll(quads, -1, axis=-2) - quads
+        elen_ = np.linalg.norm(edges_, axis=-1)
+        enx_ = np.roll(edges_, -1, axis=-2)
+        cr_ = edges_[..., 0] * enx_[..., 1] - edges_[..., 1] * enx_[..., 0]
+        degen = (elen_.min(-1) < 5.0) | ~((cr_ > 0).all(-1) | (cr_ < 0).all(-1))
+        masks: dict = {}  # several rejects often share a window: unpack once
+        for b, s in zip(*np.nonzero(emitted & ~valid & degen)):
+            wi = s // Ks
+            if (b, wi) not in masks:
+                masks[(b, wi)] = mask_of(b, wi)
+            q2 = _refit_degenerate_quad(
+                masks[(b, wi)], quads[b, s], areas[b, s], H, W,
+                conn4=(s % Ks) >= K)  # split slots hold 4-conn components
+            if q2 is None:
+                continue
+            sh = np.sum(q2[:, 0] * np.roll(q2[:, 1], -1)
+                        - np.roll(q2[:, 0], -1) * q2[:, 1])
+            if sh < 0:
+                q2 = q2[[0, 3, 2, 1]]
+            if _quad_gates(q2[None, None], areas[b, s][None, None],
+                           H, W, params)[0, 0]:
+                quads[b, s] = q2
+                valid[b, s] = True
+    return quads, valid, areas
+
+
+def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params):
+    """Quad candidates from bit-packed (B, Wn, H, ceil(W/8)) masks: unpack
+    (little-endian bits, cropped to W) and :func:`quads_from_masks`."""
+    fg = np.unpackbits(packed, axis=-1, bitorder="little")[..., :W]
+    return quads_from_masks(fg[:, :, :H], params)
+
+
+def _pnp_block(det, Ks, dists, marker_size, lm_iters, pnp_method):
+    """Detections -> one packed float64 ``(B*D, 23)`` result: corners (8),
+    id, ok, R (9), t (3), reprojection error, as
+    vican_tpu/perception.py:_pnp_block packs them.  Poses are solved only
+    for the valid slots; ``ok`` also requires a finite pose."""
+    from .ops.pnp import solve_marker_pose
+
+    B, D = det.ids.shape
+    corners = det.corners.reshape(B * D, 4, 2)
+    out = torch.zeros((B * D, 23), dtype=torch.float64, device=corners.device)
+    out[:, 0:8] = corners.reshape(B * D, 8)
+    out[:, 8] = det.ids.reshape(B * D).to(torch.float64)
+    sel = det.valid.reshape(B * D).nonzero()[:, 0]
+    if sel.numel():
+        im_of = sel // D
+        R, t, err = solve_marker_pose(corners[sel], Ks[im_of], dists[im_of], marker_size,
+                                      lm_iters=lm_iters, method=pnp_method)
+        finite = (torch.isfinite(err) & torch.isfinite(R).all(dim=(1, 2))
+                  & torch.isfinite(t).all(dim=1))
+        out[sel, 9] = finite.to(torch.float64)
+        out[sel, 10:19] = R.reshape(-1, 9)
+        out[sel, 19:22] = t
+        out[sel, 22] = err
+    return out
+
+
+def _unpack_pnp_result(out: np.ndarray):
+    """Host inverse of :func:`_pnp_block`'s ``(N, 23)`` buffer: ``(corners
+    (N, 4, 2), ids, ok, R (N, 3, 3), t (N, 3), err)``."""
+    N = out.shape[0]
+    return (out[:, 0:8].reshape(N, 4, 2), out[:, 8].astype(np.int64), out[:, 9] > 0.5,
+            out[:, 10:19].reshape(N, 3, 3), out[:, 19:22], out[:, 22])
+
+
+class _DeviceMode:
+    """The per-batch program of the device mode for one configuration."""
+
+    def __init__(self, aruco, marker_size, corner_refine, flags, lm_iters,
+                 detector_params, device):
+        from .ops import detect as D_
+        from .ops.dictionary import get_dictionary, marker_bits_table
+
+        self.device = device
+        self.marker_size = float(marker_size)
+        self.lm_iters = lm_iters
+        self.pnp_method = resolve(PNP_FLAGS, flags, "flags")
+        _, self.n_bits = get_dictionary(aruco)
+        self.codes = D_.dictionary_codes(marker_bits_table(aruco), device)
+        params = detector_params or D_.DetectorParams()
+        params = params._replace(corner_refine=resolve(CORNER_REFINE, corner_refine,
+                                                       "corner_refine"))
+        self.params = D_.resolve_error_correction(params, aruco)
+
+    def detect(self, gray_u8: torch.Tensor, quads, valid, areas):
+        """Refine, decode and dedup the host candidates over the resident
+        frames (vican_tpu/perception.py:_build_hybrid).  Only the valid
+        candidate slots are refined and decoded: the others can neither be
+        kept nor suppress a kept one."""
+        from .ops import detect as D_
+
+        dev, p = self.device, self.params
+        B, Q = valid.shape
+        gray = gray_u8.to(torch.float32)
+        q = torch.from_numpy(quads).to(dev, torch.float64).reshape(B * Q, 4, 2)
+        area = torch.from_numpy(areas).to(dev)
+        idx = torch.from_numpy(np.flatnonzero(valid)).to(dev)
+        bi = idx // Q
+        refined = D_.refine_quad(gray, bi, q[idx], p)
+        ids_v, _, corners_v, ok_v = D_.decode_quads(
+            gray, bi, refined, torch.ones_like(idx, dtype=torch.bool), self.codes,
+            self.n_bits, p)
+        corners = torch.zeros_like(q).index_copy_(0, idx, corners_v)
+        ids = torch.zeros(B * Q, dtype=torch.int64, device=dev).index_copy_(0, idx, ids_v)
+        ok = torch.zeros(B * Q, dtype=torch.bool, device=dev).index_copy_(0, idx, ok_v)
+        return D_.dedup_and_compact(corners.reshape(B, Q, 4, 2), ids.reshape(B, Q),
+                                    ok.reshape(B, Q), area, p)
+
+    def run(self, gray: np.ndarray | torch.Tensor, Ks: np.ndarray, dists: np.ndarray,
+            timer: PhaseTimer) -> np.ndarray:
+        """One batch: uint8 gray ``(B, H, W)`` -> the packed ``(B*D, 23)``
+        result on the host."""
+        from .ops.threshold import multi_threshold
+
+        dev, p = self.device, self.params
+        H, W = gray.shape[1:]
+        with timer.phase("upload"):
+            g = torch.as_tensor(gray).to(dev).contiguous()
+            Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
+            dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
+        with timer.phase("threshold kernel"):
+            packed = multi_threshold(g, p.win_sizes, p.thresh_const)
+        with timer.phase("masks to host"):
+            packed = packed.cpu().numpy()
+        with timer.phase("host candidates"):
+            quads, valid, areas = quads_from_packed_masks(packed, H, W, p)
+        with timer.phase("detect program"):
+            det = self.detect(g, quads, valid, areas)
+        with timer.phase("PnP"):
+            out = _pnp_block(det, Ks_d, dists_d, self.marker_size, self.lm_iters,
+                             self.pnp_method).cpu().numpy()
+        return out
+
+
+def _camera_arrays(cams):
+    Ks = np.stack([np.asarray(c.intrinsics, np.float64) for c in cams])
+    dists = np.stack([np.pad(np.atleast_1d(c.distortion).astype(np.float64), (0, 14))[:14]
+                      for c in cams])
+    return Ks, dists
+
+
+def _edges(batches, B, program: _DeviceMode, timer: PhaseTimer, verbose: bool) -> dict:
+    """Run ``(files, cams, gray (nb, H, W) uint8)`` batches through the
+    device mode, in order: a tail batch is padded to ``B`` frames with
+    copies of its last frame and camera (vican_tpu/perception.py:1343-1345)
+    and only its ``nb`` real frames enter the dict."""
+    out: dict = {}
+    Dcap = program.params.max_detections
+    total = 0
+    for bi, (files, cams, gray) in enumerate(batches):
+        nb = len(files)
+        if nb < B:
+            pad = B - nb
+            if isinstance(gray, torch.Tensor):
+                gray = torch.cat([gray, gray[-1:].expand(pad, *gray.shape[1:])])
+            else:
+                gray = np.concatenate([gray, np.repeat(gray[-1:], pad, axis=0)])
+            cams = list(cams) + [cams[-1]] * pad
+        Ks, dists = _camera_arrays(cams)
+        result = program.run(gray, Ks, dists, timer)
+        with timer.phase("dict"):
+            corners, ids, ok, R, t, err = _unpack_pnp_result(result)
+            for j in range(nb):
+                for k in range(Dcap):
+                    e = j * Dcap + k
+                    if not ok[e]:
+                        continue
+                    key = (cams[j].id, gen_marker_uid(files[j], str(int(ids[e]))))
+                    out[key] = {
+                        "pose": SE3(R=R[e], t=t[e]),
+                        "corners": corners[e].copy(),
+                        "reprojected_err": float(err[e]),
+                        "im_filename": files[j],
+                    }
+                    total += 1
+        if verbose:
+            print(f"  batch {bi}: {nb} images, {int(ok[: nb * Dcap].sum())} detections")
+    if verbose:
+        n_images = len({v["im_filename"] for v in out.values()})
+        print(f"Found markers in {n_images} images ({total} detections).")
+    return out
+
+
+def estimate_pose_gray(
+    gray,
+    im_filenames: list[str],
+    cams: list[Camera],
+    aruco: str,
+    marker_size: float,
+    corner_refine: str,
+    flags: str,
+    batch_size: int = 32,
+    lm_iters: int = 20,
+    detector_params=None,
+    device=None,
+    verbose: bool = True,
+    timer: PhaseTimer | None = None,
+) -> dict:
+    """The device mode from preprocessed gray frames: uint8 ``(N, H, W)``
+    (a numpy array or a tensor on any device) with one file name and one
+    camera per frame -> the reference edge dict.  The file names only name
+    the detections (``"<parent dir>_<marker>"``, :func:`gen_marker_uid`).
+
+    ``device=None`` is the CUDA card (raises without one).  ``timer``
+    collects the per-batch phases (:data:`PHASES`)."""
+    device = resolve_device(device)
+    no_tf32()
+    im_filenames, cams = list(im_filenames), list(cams)
+    if not (len(gray) == len(im_filenames) == len(cams)):
+        raise ValueError("estimate_pose_gray: one file name and one camera per frame")
+    program = _DeviceMode(aruco, marker_size, corner_refine, flags, lm_iters,
+                          detector_params, device)
+    timer = timer or PhaseTimer(verbose=False, device=device)
+    B = batch_size
+    batches = ((im_filenames[s:s + B], cams[s:s + B], gray[s:s + B])
+               for s in range(0, len(im_filenames), B))
+    return _edges(batches, B, program, timer, verbose)
+
+
+def estimate_pose_batched(
+    im_filenames: list[str],
+    cams: list[Camera],
+    aruco: str,
+    marker_size: float,
+    corner_refine: str,
+    brightness: int,
+    contrast: int,
+    flags: str,
+    batch_size: int = 32,
+    lm_iters: int = 20,
+    detector_params=None,
+    mesh=None,
+    pipeline_mode: str = "device",
+    verbose: bool = True,
+    device=None,
+    timer: PhaseTimer | None = None,
+) -> dict:
+    """Run the perception pipeline over image files (JPEG decode and the
+    reference's brightness/contrast/gray preprocess on the host with
+    OpenCV, then :func:`estimate_pose_gray`'s device mode).
+
+    ``pipeline_mode``: ``"device"``; ``"auto"`` means ``"device"`` here.
+    Cameras of different resolutions are grouped and their dicts merged,
+    as in the JAX package.  Returns the reference edge dict.
+    """
+    if pipeline_mode in ("roi", "host", "pure"):
+        raise NotImplementedError(
+            f"pipeline_mode={pipeline_mode!r} is not ported yet (ROADMAP section 1); "
+            "use 'device'")
+    if pipeline_mode not in ("device", "auto"):
+        raise ValueError(f"unknown perception pipeline mode: {pipeline_mode!r}")
+    if mesh is not None:
+        raise NotImplementedError("mesh= (data parallelism over cards) is not ported yet "
+                                  "(ROADMAP section 1)")
+    device = resolve_device(device)
+    no_tf32()
+
+    res_of = lambda c: (getattr(c, "resolution_y", None), getattr(c, "resolution_x", None))
+    res_keys = [res_of(c) for c in cams]
+    if any(None in r for r in res_keys):
+        res_keys = [r if None not in r else _probe_image_size(fn)
+                    for r, fn in zip(res_keys, im_filenames)]
+    if len(set(res_keys)) > 1:
+        groups: dict = {}
+        for key, fn, cam in zip(res_keys, im_filenames, cams):
+            g = groups.setdefault(key, ([], []))
+            g[0].append(fn)
+            g[1].append(cam)
+        out_all: dict = {}
+        for (h, w), (fns, cs) in groups.items():
+            if verbose:
+                print(f"Resolution group {w}x{h}: {len(fns)} images")
+            out_all.update(estimate_pose_batched(
+                fns, cs, aruco, marker_size, corner_refine, brightness, contrast, flags,
+                batch_size=batch_size, lm_iters=lm_iters, detector_params=detector_params,
+                verbose=verbose, device=device, timer=timer))
+        return out_all
+
+    program = _DeviceMode(aruco, marker_size, corner_refine, flags, lm_iters,
+                          detector_params, device)
+    timer = timer or PhaseTimer(verbose=False, device=device)
+    B = batch_size
+    gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
+
+    def batches():
+        for start in range(0, len(im_filenames), B):
+            files, bcams = im_filenames[start:start + B], cams[start:start + B]
+            images = load_images(files, grayscale=gray_direct)
+            decl = res_of(bcams[0])
+            if None not in decl and tuple(images.shape[1:3]) != decl:
+                raise ValueError(
+                    f"camera {bcams[0].id!r} declares resolution {decl[1]}x{decl[0]} but "
+                    f"{files[0]!r} decodes to {images.shape[2]}x{images.shape[1]}")
+            gray = images if gray_direct else host_preprocess(
+                images, float(brightness), float(contrast))
+            yield files, bcams, gray
+
+    return _edges(batches(), B, program, timer, verbose)
