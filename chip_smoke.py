@@ -5,8 +5,10 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``vican_torch/csrc`` (one ``nvcc``
-per source, all at once), holds each against its plain PyTorch version at
-the main paths' shapes and times both, then drives two paths:
+per source, all at once) and the C edge packer, holds each kernel against
+its plain PyTorch version at the main paths' shapes (``thin_mv`` also at
+the shape of the JAX package's matvec probe) and times both, then drives
+two paths:
 
 - the solver, ``vican_torch.bipgo.bipartite_se3sync``, on three synthetic
   problems: A, bench.py's large_shop problem (100 cameras, 10k timesteps,
@@ -14,7 +16,10 @@ the main paths' shapes and times both, then drives two paths:
   on the same problem; B, 10k cameras / 10k timesteps / 1M edges, the
   large-graph route, whose CheFSI filter runs on the ``pwr_apply`` kernel;
   C, 2048 cameras / 10k timesteps / 240k edges through both routes, which
-  must agree;
+  must agree; D, 10k cameras / 12k timesteps / 1.2M edges, whose operator
+  passes the 6 GB budget, so the large-graph route streams and filters on
+  the ``thin_mv`` kernel, checked against the materialized regime on the
+  same packed problem; every problem packed by the C packer;
 - perception in device mode, ``vican_torch.perception.estimate_pose_gray``,
   on 384 frames at 1280x720 (8 cameras around a 24-marker cube, 48
   timesteps, rendered on the card by ``vican_torch.render``), thresholded by
@@ -48,6 +53,9 @@ CONFIG_A = dict(seed=0, n_cams=100, n_times=10_000, n_markers=24, n_edges=120_00
                 kappa_r=1e4, sigma_t=1e-3)
 CONFIG_B = dict(seed=0, n_cams=10_000, n_times=10_000, n_edges=1_000_000)
 CONFIG_C = dict(seed=1, n_cams=2048, n_times=10_000, n_edges=240_000)
+# cell B's density (100 edges per timestep) over a 20% longer capture: the
+# (3C, 3T) operator and its bf16 copy, 6.48 GB, pass the 6 GB budget
+CONFIG_D = dict(seed=2, n_cams=10_000, n_times=12_000, n_edges=1_200_000)
 MAXITER = 4
 
 
@@ -67,6 +75,10 @@ JAX_A_TRANS_M = 0.028339771405383067
 A_ROT_TOL_DEG = 0.01
 A_TRANS_TOL_M = 1e-3
 KERNEL_REL_TOL = 1e-3  # max |kernel - plain| / max |plain|; see kernel_phase
+# thin_mv: the same exact bf16 products summed in another float32 order;
+# the probe's own bar (mv_kernel_probe.py:12-14, 107)
+MV_REL_TOL = 1e-5
+PROBE_SHAPE = (30208, 31744, 128)  # M, K, w of mv_kernel_probe.py:73
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense): device-memory bytes/s and bf16 tensor-core FLOP/s; and its int32
@@ -128,8 +140,22 @@ def accuracy(prob, est):
     return float(np.mean(r)), float(np.mean(t))
 
 
+def _last_packer() -> str | None:
+    """Which packer the last pack_problem call ran ("c" or "python")."""
+    from vican_torch.solver import packing
+
+    return packing.last_packer
+
+
+def _check_packer() -> None:
+    """Raise unless the last pack_problem call ran the C packer."""
+    if _last_packer() != "c":
+        raise AssertionError(f"packed by the {_last_packer()} packer, not the C one")
+
+
 def solve(prob, **env):
-    """One timed bipartite_se3sync call; returns (poses, seconds, log lines)."""
+    """One timed bipartite_se3sync call, packed by the C packer; returns
+    (poses, seconds, log lines)."""
     import torch
 
     from vican_torch import bipgo
@@ -147,6 +173,7 @@ def solve(prob, **env):
                 lsqr_solver="conjugate_gradient", dtype=np.float32, verbose=True,
             )
         seconds = time.perf_counter() - t0
+        _check_packer()
     finally:
         for k, v in saved.items():
             if v is None:
@@ -247,27 +274,175 @@ def kernel_phase(dev):
     return rows
 
 
-def profile_phase(prob) -> dict:
-    """Cell B's solve again under ``torch.profiler`` with the solver's
-    phase ranges on: device time by kernel, and the share of the
-    large-graph solve phase during which the card ran a kernel."""
+def thin_mv_phase(dev) -> dict:
+    """thin_mv against its plain version at the probe's shape (its cos
+    operands, mv_kernel_probe.py:73-81), at the streaming regime's (a
+    30000^2 symmetric bf16 operator, w = 10 and 1) and at a ragged shape
+    (M, K not multiples of 8), each timed beside its bound and a library
+    yardstick.  Returns the rows keyed by case."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, seconds, log = solve(prob, VICAN_TPU_TRACE="1")
+    from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+
+    def check(case, B, X):
+        M, K = B.shape
+        w = X.shape[1]
+        out = thin_mv(B, X)
+        torch.cuda.synchronize()
+        ref = thin_mv_plain(B, X)
+        abs_err = float((out - ref).abs().max())
+        rel_err = abs_err / float(ref.abs().max())
+        if not (rel_err < MV_REL_TOL and torch.isfinite(out).all()):
+            raise AssertionError(f"thin_mv {case}: rel err {rel_err} >= {MV_REL_TOL}")
+        Xb = X.to(torch.bfloat16)
+        ms = _median_ms(lambda: thin_mv(B, X))
+        plain_ms = _median_ms(lambda: thin_mv_plain(B, X))
+        # yardstick only, never called by the port: cuBLAS accumulates in
+        # float32 but rounds Y to bfloat16
+        library_ms = _median_ms(lambda: torch.matmul(B, Xb))
+        nbytes = M * K * 2 + K * w * 2 + M * w * 4
+        ops = 2 * M * K * w
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+        rows[case] = dict(shape=[M, K, w], max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=max(t_bytes, t_ops) * 1e3,
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          bytes=nbytes, ops=ops, vector_rows=B.stride(0) % 8 == 0)
+        emit("thin_mv_kernel", case=case, library="torch.matmul, bf16 out (yardstick)",
+             **rows[case])
+
+    # the probe's operands (mv_kernel_probe.py:72-81)
+    M, K, w = PROBE_SHAPE
+    fi = lambda k: torch.arange(k, dtype=torch.float32, device=dev)  # noqa: E731
+    B = torch.cos(fi(M)[:, None] * 1e-3 + fi(K)[None, :] * 1e-5).to(torch.bfloat16)
+    X = torch.cos(fi(K)[:, None] + fi(w)[None, :]).to(torch.bfloat16)
+    check("probe", B, X)
+    del B, X
+
+    # the streaming regime's operator: symmetric, 3C = 30000
+    n = 3 * CONFIG_D["n_cams"]
+    R = torch.randn((n, n), generator=g, device=dev)
+    S = torch.add(R, R.T, out=torch.empty_like(R))
+    del R
+    B = aligned_bf16(S)
+    del S
+    for w in (10, 1):
+        X, _ = torch.linalg.qr(torch.randn((n, w), generator=g, device=dev))
+        check(f"streaming w={w}", B, X)
+    del B
+
+    B = aligned_bf16(torch.randn((n - 1, n + 1), generator=g, device=dev))
+    X = torch.randn((n + 1, 10), generator=g, device=dev)
+    check("ragged", B, X)
+    del B, X
+    torch.cuda.empty_cache()
+    return rows
+
+
+def config_d_phase(dev) -> dict:
+    """Config D through bipartite_se3sync: past the 6 GB operator budget,
+    so the large-graph route's streaming regime, whose filter runs on the
+    thin_mv kernel.  Then D's packed problem through scale.so3_sync_large
+    twice, materialized (pwr_apply) and streaming under ``torch.profiler``,
+    which must agree."""
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vican_torch import bipgo
+    from vican_torch.ops.lie import distance_so3
+    from vican_torch.solver import packing, scale
+    from vican_torch.solver.mv import thin_mv
+    from vican_torch.solver.pwr import pwr_apply
+    from vican_torch.synthetic import make_problem_arrays
+
+    C, T = CONFIG_D["n_cams"], CONFIG_D["n_times"]
+    t0 = time.perf_counter()
+    prob = make_problem_arrays(**CONFIG_D)
+    gen_s = time.perf_counter() - t0
+    assert bipgo._use_scale_path(C, T, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    thin_mv.launches = pwr_apply.launches = 0
+    est, solve_s, log = solve(prob)
+    launches = {"thin_mv": thin_mv.launches, "pwr_apply": pwr_apply.launches}
+    peak = torch.cuda.max_memory_allocated()
+    r_err, t_err = accuracy(prob, est)
+    R = np.stack([est[c].R() for c in prob.cams_gt]).astype(np.float64)
+    ortho = float(np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max())
+    finite = all(np.isfinite(p.pose()).all() for p in est.values())
+    emit("config_D", route="large-graph, streaming", gen_s=gen_s, solve_s=solve_s,
+         rot_err_deg=r_err, trans_err_m=t_err, kernel_launches=launches,
+         packer=_last_packer(), max_memory_allocated=peak, ortho_err=ortho, log=log)
+    if not any("Large-graph path" in line for line in log):
+        raise AssertionError("config D did not take the large-graph route")
+    if launches["thin_mv"] <= 0 or launches["pwr_apply"] != 0:
+        raise AssertionError(f"config D did not stream through thin_mv: {launches}")
+    if not (finite and ortho < 1e-4 and r_err < 3.0):
+        raise AssertionError(f"config D: finite={finite} ortho={ortho} rot_err={r_err}")
+    del est
+
+    # D's packed problem, folded and chunked as the large-graph route does,
+    # through both regimes of so3_sync_large
+    packed = packing.pack_problem(prob.edges, prob.constraints(), _one, _one, _filt,
+                                  dtype=np.float32)
+    del prob
+    chunked, chunk_t = bipgo._fold_and_chunk(packed, np.float32)
+    kw = dict(C=packed.num_cams, T=packed.num_times, chunk_t=chunk_t, maxiter=MAXITER,
+              cert_tol=1e-6 / packed.k_r_scale, device=dev)
+    out = {}
+    for regime, budget in (("materialized", int(1e10)),
+                           ("streaming", scale._MATERIALIZE_BUDGET_BYTES)):
+        thin_mv.launches = pwr_apply.launches = 0
+        torch.cuda.synchronize()
+        # the streaming solve is traced: where its device time goes
+        trace = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                 if regime == "streaming" else contextlib.nullcontext())
+        with trace as prof, record_function(f"{regime} solve"):
+            t0 = time.perf_counter()
+            res = scale.so3_sync_large(*chunked, materialize_budget=budget, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        out[regime] = dict(seconds=seconds, r_cam=res.r_cam,
+                           evals=res.evals.cpu().tolist(),
+                           launches={"thin_mv": thin_mv.launches,
+                                     "pwr_apply": pwr_apply.launches})
+    del res
+    trace = _trace_summary(prof, "streaming solve", "thin_mv")
+    d = distance_so3(out["streaming"]["r_cam"].double(), out["materialized"]["r_cam"].double())
+    d_max = float(d.max())
+    emit("config_D_regimes", max_cam_rot_diff_deg=d_max,
+         mean_cam_rot_diff_deg=float(d.mean()),
+         **{k: {key: v[key] for key in ("seconds", "launches", "evals")}
+            for k, v in out.items()},
+         streaming_trace=trace)
+    if (out["streaming"]["launches"]["pwr_apply"] or not out["streaming"]["launches"]["thin_mv"]
+            or not out["materialized"]["launches"]["pwr_apply"]):
+        raise AssertionError(f"config D regimes took the wrong kernels: {out}")
+    if not d_max < 0.25:
+        raise AssertionError(f"config D: streaming and materialized differ by {d_max} deg")
+    return {"launches": launches["thin_mv"], "solve_s": solve_s}
+
+
+def _trace_summary(prof, range_prefix: str, tag: str) -> dict:
+    """Device time by kernel in a ``torch.profiler`` trace, and the share of
+    the host range whose name starts with ``range_prefix`` during which the
+    card ran a kernel; ``tag_kernels_s`` sums the kernels whose names hold
+    ``tag``.  Empty when the trace holds no device work (not measured)."""
+    from torch.autograd import DeviceType
+
     events = prof.events()
-    # the phase ranges also appear on the device timeline, under the names
-    # of their host-side ranges: keep only device work
+    # host ranges also appear on the device timeline, under their host
+    # names: keep only device work
     host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
     kernels = [e for e in events
                if e.device_type == DeviceType.CUDA and e.name not in host_names]
-    out = {"traced_solve_s": seconds, "device_kernels": len(kernels), "log": log}
-    phase = next((e for e in events if e.name.startswith("Optimizing (chunked")), None)
-    if not kernels or phase is None:
-        return out  # no device activity in the trace: not measured
-    lo, hi = phase.time_range.start, phase.time_range.end
+    rng = next((e for e in events if e.name.startswith(range_prefix)), None)
+    if not kernels or rng is None:
+        return {"device_kernels": len(kernels)}
+    lo, hi = rng.time_range.start, rng.time_range.end
     busy, end = 0.0, lo
     for s, e in sorted((max(k.time_range.start, lo), min(k.time_range.end, hi))
                        for k in kernels):
@@ -277,15 +452,29 @@ def profile_phase(prob) -> dict:
     by_name: dict = {}
     for k in kernels:
         by_name[k.name] = by_name.get(k.name, 0.0) + (k.time_range.end - k.time_range.start)
-    pwr_us = sum(v for n, v in by_name.items() if "pwr_" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out.update(
-        solve_phase_s=(hi - lo) * 1e-6, device_busy_s=busy * 1e-6,
-        device_busy_share=busy / (hi - lo), pwr_kernels_s=pwr_us * 1e-6,
+    return dict(
+        device_kernels=len(kernels), range_s=(hi - lo) * 1e-6, device_busy_s=busy * 1e-6,
+        device_busy_share=busy / (hi - lo),
+        tag_kernels_s=sum(v for n, v in by_name.items() if tag in n) * 1e-6,
         all_kernels_s=sum(by_name.values()) * 1e-6,
         top_kernels=[[n[:80], v * 1e-6] for n, v in top],
     )
-    return out
+
+
+def profile_phase(prob) -> dict:
+    """Cell B's solve again under ``torch.profiler`` with the solver's
+    phase ranges on: device time by kernel, and the share of the
+    large-graph solve phase during which the card ran a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds, log = solve(prob, VICAN_TPU_TRACE="1")
+    summary = _trace_summary(prof, "Optimizing (chunked", "pwr_")
+    if "range_s" in summary:
+        summary["solve_phase_s"] = summary.pop("range_s")
+        summary["pwr_kernels_s"] = summary.pop("tag_kernels_s")
+    return {"traced_solve_s": seconds, "log": log, **summary}
 
 
 def perception_scene(dev):
@@ -457,6 +646,7 @@ def perception_phases(dev) -> int:
         edge_filter=lambda e: e["reprojected_err"] < 0.15, maxiter=4,
         lsqr_solver="conjugate_gradient", dtype=np.float64, verbose=False)
     calib_s = time.perf_counter() - t0
+    _check_packer()
     found = [c for c in cams if c in est]
     G = optimize_gauge_SE3([cams[c].extrinsics.inv() for c in found],
                            [est[c].inv() for c in found])
@@ -464,7 +654,8 @@ def perception_phases(dev) -> int:
                           np.asarray((G.inv() @ est[c]).R(), np.float64)) for c in found]
     t_err = [float(np.linalg.norm(cams[c].extrinsics.t() - (G.inv() @ est[c]).t()))
              for c in found]
-    emit("calibration", seconds=calib_s, cameras_found=len(found), cameras=len(cams),
+    emit("calibration", seconds=calib_s, packer=_last_packer(), cameras_found=len(found),
+         cameras=len(cams),
          mean_rot_err_deg=float(np.mean(r_err)), mean_trans_err_m=float(np.mean(t_err)),
          max_rot_err_deg=float(np.max(r_err)), max_trans_err_m=float(np.max(t_err)))
     if not (len(found) == len(cams) and np.mean(r_err) < 1.5 and np.mean(t_err) < 0.05):
@@ -481,6 +672,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, REPO)
     from vican_torch import _kernels, bipgo
+    from vican_torch._native import build_errors as native_errors
+    from vican_torch._native import get_fastpack
     from vican_torch.geometry import distance_SO3
     from vican_torch.solver.pwr import pwr_apply
     from vican_torch.synthetic import make_problem_arrays
@@ -498,10 +691,15 @@ def main() -> None:
 
     t0 = time.perf_counter()
     logs = _kernels.build()
-    emit("build", seconds=time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if get_fastpack() is None:
+        raise AssertionError(f"the C packer did not build: {native_errors}")
+    emit("build", seconds=build_s, packer_seconds=time.perf_counter() - t0,
          kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
 
     rows = kernel_phase(dev)
+    mv_rows = thin_mv_phase(dev)
 
     # A: bench.py's problem, dense route, against the JAX package's accuracy
     prob = make_problem_arrays(**CONFIG_A)
@@ -510,7 +708,7 @@ def main() -> None:
     est, first_s, _ = solve(prob)
     est, warm_s, log = solve(prob)
     r_err, t_err = accuracy(prob, est)
-    emit("config_A", route="dense", first_s=first_s, warm_s=warm_s,
+    emit("config_A", route="dense", packer=_last_packer(), first_s=first_s, warm_s=warm_s,
          rot_err_deg=r_err, trans_err_m=t_err, jax_rot_err_deg=JAX_A_ROT_DEG,
          jax_trans_err_m=JAX_A_TRANS_M, kernel_launches=pwr_apply.launches, log=log)
     if not (abs(r_err - JAX_A_ROT_DEG) < A_ROT_TOL_DEG
@@ -531,7 +729,7 @@ def main() -> None:
     R = np.stack([est[c].R() for c in prob.cams_gt]).astype(np.float64)
     ortho = float(np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max())
     finite = all(np.isfinite(p.pose()).all() for p in est.values())
-    emit("config_B", route="large-graph", gen_s=gen_s, solve_s=solve_s,
+    emit("config_B", route="large-graph", packer=_last_packer(), gen_s=gen_s, solve_s=solve_s,
          rot_err_deg=r_err, trans_err_m=t_err, kernel_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated(), ortho_err=ortho, log=log)
     if not any("Large-graph path" in line for line in log):
@@ -555,11 +753,15 @@ def main() -> None:
         raise AssertionError("config C: routes were not large-graph then dense")
     d_cam = max(distance_SO3(np.asarray(large[c].R(), np.float64),
                              np.asarray(dense[c].R(), np.float64)) for c in prob.cams_gt)
-    emit("config_C", large_s=large_s, dense_s=dense_s, max_cam_rot_diff_deg=d_cam,
+    emit("config_C", packer=_last_packer(), large_s=large_s, dense_s=dense_s,
+         max_cam_rot_diff_deg=d_cam,
          kernel_launches_large=launches_c, acc_large=accuracy(prob, large),
          acc_dense=accuracy(prob, dense), log_large=log_large, log_dense=log_dense)
     if not d_cam < 0.2:
         raise AssertionError(f"config C: routes differ by {d_cam} deg")
+    del prob, large, dense
+
+    d = config_d_phase(dev)
 
     th = perception_phases(dev)
 
@@ -579,6 +781,15 @@ def main() -> None:
         "differing_bytes": th["differing_bytes"], "ms": th["ms"], "plain_ms": th["plain_ms"],
         "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],
         "library_ms": th["library_ms"], "shape": th["shape"],
+    }, {
+        "name": "thin_mv", "route": "cuda", "source": "vican_torch/csrc/mv.cu",
+        "replaces": "benchmarks/mv_kernel_probe.py:36",
+        "launches": d["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in mv_rows.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in mv_rows.values()),
+        **{k: mv_rows["streaming w=10"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "probe": {k: mv_rows["probe"][k] for k in ("ms", "library_ms", "bound_ms", "shape")},
     }]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)

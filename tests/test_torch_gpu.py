@@ -17,6 +17,7 @@ from vican_torch.cam import Camera
 from vican_torch.geometry import distance_SO3
 from vican_torch.ops.threshold import multi_threshold, multi_threshold_plain
 from vican_torch.perception import estimate_pose_gray
+from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
 from vican_torch.solver.pwr import filter_operator, pwr_apply, pwr_apply_plain
 from vican_torch.synthetic import make_problem_arrays
 
@@ -68,6 +69,61 @@ def test_large_route_on_the_card_matches_cpu(cuda, monkeypatch):
     # the bars of tests/test_scale.py:205-206 (f32 variants on a noisy fixture)
     assert d_rot < 0.2, d_rot
     assert d_tr < 0.05, d_tr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,w,aligned", [
+    (1000, 2048, 10, True), (1000, 2048, 1, True), (999, 1003, 10, True),
+    (333, 517, 16, False), (257, 4099, 128, True), (130, 77, 37, False),
+])
+def test_thin_mv_kernel_matches_plain(cuda, M, K, w, aligned):
+    """The thin-matvec kernel against its plain version: aligned rows (the
+    vector path) and rows at an odd stride (the entry-by-entry path), M and
+    K not multiples of 8, w across the one-pass widths and the 16-column
+    passes."""
+    rng = np.random.default_rng(M + K + w)
+    A = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda)
+    B = aligned_bf16(A) if aligned else A.to(torch.bfloat16)
+    assert (B.stride(0) % 8 == 0) == aligned
+    X = torch.from_numpy(rng.standard_normal((K, w)).astype(np.float32)).to(cuda)
+    before = thin_mv.launches
+    out = thin_mv(B, X)
+    torch.cuda.synchronize()
+    assert thin_mv.launches == before + 1
+    ref = thin_mv_plain(B, X)
+    assert out.shape == ref.shape == (M, w) and out.dtype == torch.float32
+    # the same exact products summed in another float32 order
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err < 1e-5, err
+    assert torch.equal(out, thin_mv(B, X))  # no atomics: bit for bit again
+
+
+@pytest.mark.gpu
+def test_streaming_regime_on_the_card_matches_cpu(cuda):
+    """so3_sync_large past its operator budget (forced by
+    ``materialize_budget=1``): the card (thin-matvec kernel) and the CPU
+    (plain version) agree, and the kernel was launched."""
+    from vican_torch.solver.core import fold_constraints
+    from vican_torch.solver.packing import pack_problem
+    from vican_torch.solver.scale import so3_sync_large, sort_edges_by_time
+
+    prob = make_problem_arrays(seed=7, n_cams=24, n_times=96, n_markers=6, n_edges=2500,
+                               kappa_r=1e5, sigma_t=1e-4)
+    p = pack_problem(prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0,
+                     lambda e: True, dtype=np.float32)
+    KR = fold_constraints(*(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        p.R_e, p.k_r, p.marker_idx.astype(np.int64), p.R_con)), p.root_idx).numpy()
+    chunked = sort_edges_by_time(KR, p.k_r, p.cam_idx, p.time_idx, p.num_times, 32)
+    kw = dict(C=p.num_cams, T=p.num_times, chunk_t=32, maxiter=4, materialize_budget=1)
+    before, pwr_before = thin_mv.launches, pwr_apply.launches
+    gpu = so3_sync_large(*chunked, device=cuda, **kw)
+    assert thin_mv.launches > before and pwr_apply.launches == pwr_before
+    cpu = so3_sync_large(*chunked, device="cpu", **kw)
+    d = max(distance_SO3(a, b) for a, b in zip(gpu.r_cam.cpu().double().numpy(),
+                                                cpu.r_cam.double().numpy()))
+    # f32 on both sides, bf16 filter products summed in other orders (the
+    # JAX parity bar of tests/test_torch_scale.py)
+    assert d < 0.15, d
 
 
 @pytest.mark.gpu

@@ -3,6 +3,7 @@ port's own dense route, on the CPU (the filter kernel's plain version)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from vican_tpu.ops.lie import distance_so3 as jdist
 from vican_tpu.solver import core as jcore
@@ -12,6 +13,7 @@ from vican_tpu.solver.scale import sort_edges_by_time as jsort
 from vican_tpu.synthetic import make_problem_arrays
 from vican_torch import bipgo as tbipgo
 from vican_torch.geometry import distance_SO3
+from vican_torch.solver.mv import thin_mv
 from vican_torch.solver.pwr import pwr_apply
 from vican_torch.solver.scale import so3_sync_large as tlarge
 from vican_torch.solver.scale import sort_edges_by_time as tsort
@@ -52,6 +54,45 @@ def test_so3_sync_large_matches_jax(dtype, bar, entry_bar):
         assert d.max() < bar, d.max()
         e = np.abs(a.numpy().astype(np.float64) - np.asarray(b, np.float64)).max()
         assert e < entry_bar, e
+
+
+# The streaming regime (past the operator budget; ``materialize_budget=1``
+# forces it) on both sides, with the bars above.  f32: the bf16 copy of the
+# dense scaled Laplacian on both sides, float32 sums in other orders;
+# measured 0.049 deg / 1.2e-3 in entries.  f64: full precision; measured
+# 2.4e-6 deg (arccos's floor) / 1.4e-15 in entries.
+@pytest.mark.parametrize("dtype,bar,entry_bar", [(np.float32, 0.15, 2.6e-3),
+                                                 (np.float64, 1e-5, 1e-10)])
+def test_streaming_regime_matches_jax(dtype, bar, entry_bar):
+    p, chunked = _chunked(dtype, 32)
+    C, T = p.num_cams, p.num_times
+    ref = jlarge(*[jnp.asarray(x) for x in chunked], C=C, T=T, chunk_t=32,
+                 maxiter=jnp.asarray(4, jnp.int32), materialize_budget=1)
+    before, pwr_before = thin_mv.launches, pwr_apply.launches
+    out = tlarge(*chunked, C=C, T=T, chunk_t=32, maxiter=4, materialize_budget=1,
+                 device="cpu")
+    # CPU tensors: the plain versions, and the materialized kernel unused
+    assert (thin_mv.launches, pwr_apply.launches) == (before, pwr_before)
+    assert out.num_iters == int(ref.num_iters)
+    for a, b in ((out.r_cam, ref.r_cam), (out.r_time, ref.r_time)):
+        d = np.asarray(jdist(jnp.asarray(a.numpy(), jnp.float64), jnp.asarray(b, jnp.float64)))
+        assert d.max() < bar, d.max()
+        e = np.abs(a.numpy().astype(np.float64) - np.asarray(b, np.float64)).max()
+        assert e < entry_bar, e
+
+
+def test_streaming_regime_matches_materialized():
+    """The port's two regimes on one problem, float32: the same iteration
+    through different products (the bar of tests/test_scale.py:99-123;
+    measured 0.029 deg)."""
+    p, chunked = _chunked(np.float32, 32)
+    kw = dict(C=p.num_cams, T=p.num_times, chunk_t=32, maxiter=4, device="cpu")
+    stream = tlarge(*chunked, materialize_budget=1, **kw)
+    mat = tlarge(*chunked, **kw)
+    d = np.asarray(jdist(jnp.asarray(stream.r_cam.numpy(), jnp.float64),
+                         jnp.asarray(mat.r_cam.numpy(), jnp.float64)))
+    assert d.max() < 0.25, d.max()
+    assert torch.isfinite(stream.evals).all()
 
 
 def test_matches_tpu_chunking():

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import vican_tpu._native as jnative
+import vican_torch._native as tnative
 from vican_tpu.solver import core as jcore
 from vican_tpu.solver.packing import pack_problem as jpack
 from vican_tpu.synthetic import make_problem_arrays
@@ -158,13 +159,15 @@ def test_cg_scatter_matvec_matches_dense_adjacency(prob, monkeypatch):
 
 
 def test_pack_problem_matches_jax_field_for_field(prob, monkeypatch):
-    """The port's packer is a copy of the JAX pure-Python packer: identical
-    output on one dict (the JAX C packer is turned off for the comparison)."""
+    """The port's pure-Python packer is a copy of the JAX one: identical
+    output on one dict (both C packers are turned off for the comparison;
+    tests/test_torch_packing.py compares the C packers)."""
     filt = lambda e: e["reprojected_err"] < 0.03
     nm_r = lambda e: 1.0 + e["corners"][0, 0] * 1e-3
     nm_t = lambda e: 2.0 - e["corners"][0, 1] * 1e-4
     monkeypatch.setenv("VICAN_TPU_NO_NATIVE", "1")
     monkeypatch.setattr(jnative, "_cache", {})
+    monkeypatch.setattr(tnative, "_cache", {})
     for dtype in (np.float32, np.float64):
         jp = jpack(prob.edges, prob.constraints(), nm_r, nm_t, filt, dtype=dtype)
         tp = tpack(prob.edges, prob.constraints(), nm_r, nm_t, filt, dtype=dtype)
@@ -205,3 +208,51 @@ def test_object_bipartite_se3sync_matches_jax():
         a, b = out[m].pose(), np.asarray(ref[m].pose(), np.float64)
         assert np.abs(a[:3, :3] - b[:3, :3]).max() < 1e-12
         assert np.abs(a[:3, 3] - b[:3, 3]).max() < 1e-6
+
+
+# The rotation-only entry points against JAX's on the fixtures of
+# tests/test_solver.py:295-312 and :358-372, float64, the bar of
+# tests/test_golden.py (0.057 deg), and rotation entries.  Measured:
+# large_bipartite_so3sync 2.1e-6 deg (dense route) and 3.0e-6 deg (large
+# route), bipartite_so3sync 1.2e-6 deg, all at arccos's floor; entries
+# 1.4e-15 to 2.1e-15.
+@pytest.mark.parametrize("route", ["dense", "large"])
+def test_large_bipartite_so3sync_matches_jax(route, monkeypatch, capsys):
+    from vican_tpu.bipgo import large_bipartite_so3sync as jlarge_so3
+    from vican_tpu.synthetic import make_problem
+
+    prob = make_problem(seed=9, n_cams=8, n_times=50, n_markers=6, kappa_r=1e4)
+    if route == "large":
+        monkeypatch.setenv("VICAN_TPU_SCALE_MIN_CAMS", "4")
+    args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: True)
+    ours = tbipgo.large_bipartite_so3sync(*args, maxiter=4, dtype=np.float64,
+                                          verbose=True, device="cpu")
+    assert ("Large-graph path" in capsys.readouterr().out) == (route == "large")
+    theirs = jlarge_so3(*args, maxiter=4, dtype=np.float64, verbose=False)
+    assert set(ours) == set(theirs)
+    d = max(distance_SO3(np.asarray(ours[k]), np.asarray(theirs[k], np.float64)) for k in theirs)
+    assert d < 0.057, d
+    e = max(np.abs(ours[k] - np.asarray(theirs[k], np.float64)).max() for k in theirs)
+    assert e < 1e-9, e
+    assert all(ours[k].shape == (3, 3) for k in ours)
+
+
+def test_bipartite_so3sync_matches_jax():
+    """The small-graph variant, with its own folding, full Laplacian, dual
+    and untransposed output."""
+    from vican_tpu.bipgo import bipartite_so3sync as jsmall
+    from vican_tpu.synthetic import make_problem
+
+    prob = make_problem(seed=11, n_cams=5, n_times=24, n_markers=5, p_obs=0.8,
+                        kappa_r=1e5, sigma_t=1e-4)
+    args = (prob.edges, prob.constraints(), lambda e: 1.0 + 0.001 * e["corners"][0, 0],
+            lambda e: True)
+    ours = tbipgo.bipartite_so3sync(*args, maxiter=4, dtype=np.float64, verbose=False,
+                                    device="cpu")
+    theirs = jsmall(*args, maxiter=4, dtype=np.float64, verbose=False)
+    assert set(ours) == set(theirs)
+    d = max(distance_SO3(np.asarray(ours[k]), np.asarray(theirs[k], np.float64)) for k in theirs)
+    assert d < 0.057, d
+    # the raw factors, too: U V^T with no determinant fix, untransposed
+    e = max(np.abs(ours[k] - np.asarray(theirs[k], np.float64)).max() for k in theirs)
+    assert e < 1e-9, e

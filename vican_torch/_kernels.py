@@ -36,6 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "pwr": {"pwr_apply_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "threshold": {"threshold_pack_u8": [_P, _P, *[_I] * 14, _F, _P]},
+    "mv": {"thin_mv_bf16": [_P, _P, _P, *[_I] * 6, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,74 @@
+"""Host C components of the port, built at first use.
+
+- ``get_fastpack()``: the edge-dict packer (``fastpack.c``, a copy of the
+  JAX package's), a CPython extension module.
+
+The source compiles with the host ``gcc`` (``$CC``) against this
+interpreter's and numpy's headers into ``_build/`` (git ignores it), named
+by a hash of the source and flags.  When the build fails, or under
+``VICAN_TPU_NO_NATIVE=1``, ``get_fastpack()`` returns None and the caller
+takes its pure-Python path, whose output is identical;
+:data:`build_errors` keeps the compiler's message.
+"""
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import os
+import subprocess
+import sys
+import sysconfig
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_cache: dict = {}
+# the compiler's output of each build that failed in this process
+build_errors: dict[str, str] = {}
+
+
+def _build(name: str) -> str | None:
+    """Compile ``<name>.c`` into a content-hash-named .so; return its path,
+    or None when the compiler fails."""
+    import numpy as np
+
+    src = os.path.join(_HERE, f"{name}.c")
+    # -march=native: the .so is built on the host that runs it; the flags
+    # are part of the name
+    flags = ["-O3", "-march=native"]
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    tag += f"_py{sys.version_info.major}{sys.version_info.minor}"
+    cache_dir = os.path.join(_HERE, "_build")
+    os.makedirs(cache_dir, exist_ok=True)
+    so_path = os.path.join(cache_dir, f"{name}_{tag}.so")
+    if os.path.exists(so_path):
+        return so_path
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    cmd = [os.environ.get("CC", "gcc"), *flags, "-shared", "-fPIC",
+           f"-I{sysconfig.get_paths()['include']}", f"-I{np.get_include()}",
+           src, "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.SubprocessError) as e:
+        build_errors[name] = getattr(e, "stderr", None) or repr(e)
+        return None
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def _get_module(name: str):
+    if name in _cache:
+        return _cache[name]
+    mod = None
+    if not os.environ.get("VICAN_TPU_NO_NATIVE"):
+        so_path = _build(name)
+        if so_path is not None:
+            spec = importlib.util.spec_from_file_location(f"vican_torch._native.{name}", so_path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+    _cache[name] = mod
+    return mod
+
+
+def get_fastpack():
+    """The compiled edge-packing module, or None when it is unavailable."""
+    return _get_module("fastpack")

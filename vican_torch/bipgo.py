@@ -4,10 +4,14 @@ Drop-in counterparts of ``vican_tpu.bipgo`` (reference vican/bipgo.py):
 
 - :func:`bipartite_se3sync`        (bipgo.py:353-490)
 - :func:`object_bipartite_se3sync` (bipgo.py:493-545)
+- :func:`large_bipartite_so3sync`  (bipgo.py:145-350), rotations only
+- :func:`bipartite_so3sync`        (bipgo.py:18-142), the reference's
+  small-graph variant with its own conventions
 
 Same edge-dict input, same callable hooks (``noise_model_r/t`` and
 ``edge_filter``, evaluated per edge on the host), same ``{node: SE3}``
-output keyed by camera id and ``"<t>_0"``.  One new keyword, ``device``:
+output keyed by camera id and ``"<t>_0"`` (the rotation-only entry points
+return (3, 3) arrays under the same keys).  One new keyword, ``device``:
 ``None`` means the CUDA card, and raises when there is none.
 
 Two routes, chosen as the JAX package chooses them (``_use_scale_path``):
@@ -16,9 +20,10 @@ to ``VICAN_TPU_SCALE_MIN_CAMS`` cameras (default 1024) while the
 (C,3,T,3) block tensor fits ``VICAN_TPU_BLOCK_BUDGET_BYTES`` (default
 2 GiB); past either, the large-graph route (:mod:`.solver.scale`, CheFSI
 on the matrix-free power graph, whose float32 filter runs on the CUDA
-kernel of :mod:`.solver.pwr`).  Translations are solved on the device by
-CG or LSQR in the requested dtype on both routes; float64 computes in
-float64 on the device.
+kernel of :mod:`.solver.pwr`; past the 6 GB operator budget, its streaming
+regime, on the kernel of :mod:`.solver.mv`).  Translations are solved on
+the device by CG or LSQR in the requested dtype on both routes; float64
+computes in float64 on the device.
 """
 from __future__ import annotations
 
@@ -34,7 +39,12 @@ from .solver import core as _core
 from .solver.packing import PackedProblem, pack_problem
 from .utils import PhaseTimer, no_tf32, resolve_device
 
-__all__ = ["bipartite_se3sync", "object_bipartite_se3sync"]
+__all__ = [
+    "bipartite_se3sync",
+    "object_bipartite_se3sync",
+    "large_bipartite_so3sync",
+    "bipartite_so3sync",
+]
 
 
 def _solver_dtype(dtype) -> np.dtype:
@@ -132,24 +142,35 @@ def _poses_out(packed, result, t_est) -> dict:
     return out
 
 
+def _fold_and_chunk(packed: PackedProblem, dtype):
+    """The large-graph route's host preparation: fold the constraints into
+    the edge blocks and group the edges into time chunks (~8 by default,
+    ``VICAN_TPU_SCALE_CHUNK_T`` timesteps each when set).  Returns
+    ``(chunked arrays of scale.sort_edges_by_time, chunk_t)``."""
+    from .solver import scale as _scale
+
+    T = packed.num_times
+    chunk_t = int(os.environ.get("VICAN_TPU_SCALE_CHUNK_T", 0)) or min(
+        T, max(64, -(-T // 8)))
+    R0 = packed.R_con[packed.root_idx]
+    Rm = packed.R_con[packed.marker_idx]
+    R_fold = np.matmul(packed.R_e, np.matmul(Rm.transpose(0, 2, 1), R0))
+    KR = packed.k_r[:, None, None] * R_fold
+    chunked = _scale.sort_edges_by_time(
+        KR.astype(dtype), packed.k_r.astype(dtype),
+        packed.cam_idx, packed.time_idx, T, chunk_t,
+    )
+    return chunked, chunk_t
+
+
 def _so3_sync_large_from_packed(packed: PackedProblem, dtype, maxiter, tm, verbose, device):
     """Rotation stage of the large-graph route: fold on the host, chunk by
     time, solve on the device.  Returns a :class:`~.solver.core.SyncResult`."""
     from .solver import scale as _scale
 
     C, T = packed.num_cams, packed.num_times
-    # ~8 chunks by default
-    chunk_t = int(os.environ.get("VICAN_TPU_SCALE_CHUNK_T", 0)) or min(
-        T, max(64, -(-T // 8)))
     with tm.phase("Folding constraints (host, chunked)"):
-        R0 = packed.R_con[packed.root_idx]
-        Rm = packed.R_con[packed.marker_idx]
-        R_fold = np.matmul(packed.R_e, np.matmul(Rm.transpose(0, 2, 1), R0))
-        KR = packed.k_r[:, None, None] * R_fold
-        chunked = _scale.sort_edges_by_time(
-            KR.astype(dtype), packed.k_r.astype(dtype),
-            packed.cam_idx, packed.time_idx, T, chunk_t,
-        )
+        chunked, chunk_t = _fold_and_chunk(packed, dtype)
     block_bytes = C * T * 9 * np.dtype(dtype).itemsize
     reason = ("block-tensor budget exceeded" if block_bytes > _block_budget_bytes()
               else "camera count past the dense-eigh threshold")
@@ -163,6 +184,26 @@ def _so3_sync_large_from_packed(packed: PackedProblem, dtype, maxiter, tm, verbo
     if verbose:
         _log_sync_result(tm, result)
     return result
+
+
+def _start(src_edges, constraints, noise_model_r, noise_model_t, edge_filter,
+           dtype, verbose, device):
+    """What every entry point does first: resolve the device (``None`` is
+    the card), turn TF32 off, check the dtype, log the graph's size and pack
+    the edge dict.  Returns ``(device, dtype, torch dtype, timer, packed)``."""
+    device = resolve_device(device)
+    no_tf32()
+    dtype = _solver_dtype(dtype)
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    tm = PhaseTimer(verbose=verbose, device=device)
+    if verbose:  # the node-count set over 2E keys is pure logging cost
+        tm.log("Received graph with {} nodes {} edges".format(
+            len({n for e in src_edges for n in e}), len(src_edges)))
+    with tm.phase("Applying constraints"):
+        packed = pack_problem(
+            src_edges, constraints, noise_model_r, noise_model_t, edge_filter, dtype=dtype
+        )
+    return device, dtype, tdt, tm, packed
 
 
 def bipartite_se3sync(
@@ -191,18 +232,9 @@ def bipartite_se3sync(
             f"unknown lsqr_solver: {lsqr_solver!r}; "
             "expected 'conjugate_gradient' or 'direct'"
         )
-    device = resolve_device(device)
-    no_tf32()
-    dtype = _solver_dtype(dtype)
-    tdt = torch.float64 if dtype == np.float64 else torch.float32
-    tm = PhaseTimer(verbose=verbose, device=device)
-    if verbose:  # the node-count set over 2E keys is pure logging cost
-        tm.log("Received graph with {} nodes {} edges".format(
-            len({n for e in src_edges for n in e}), len(src_edges)))
-    with tm.phase("Applying constraints"):
-        packed = pack_problem(
-            src_edges, constraints, noise_model_r, noise_model_t, edge_filter, dtype=dtype
-        )
+    device, dtype, tdt, tm, packed = _start(
+        src_edges, constraints, noise_model_r, noise_model_t, edge_filter, dtype, verbose,
+        device)
     tm.log("Bipartite graph: {} cameras, {} timesteps, {} edges.".format(
         packed.num_cams, packed.num_times, packed.num_edges))
 
@@ -231,6 +263,95 @@ def bipartite_se3sync(
         warnings.warn(f"translation solve residual {res:.3e} (poorly converged)")
     out = _poses_out(packed, result, t_est)
     tm.log("Done!")
+    return out
+
+
+def large_bipartite_so3sync(
+    src_edges: dict,
+    constraints: dict,
+    noise_model: Callable,
+    edge_filter: Callable,
+    maxiter: int,
+    dtype=np.float32,
+    verbose: bool = True,
+    device=None,
+) -> dict:
+    """SO(3) synchronization in large bipartite graphs with node constraints:
+    the rotation stage of :func:`bipartite_se3sync` alone, on the same two
+    routes.  Edge keys are ``(camera_id, "<t>_<marker>")``; values carry at
+    least ``"pose"``.  Returns world-frame (3, 3) rotations keyed by camera
+    id and ``"<t>_0"``.  ``device``: where the solve runs; ``None`` is the
+    CUDA card."""
+    device, dtype, tdt, tm, packed = _start(
+        src_edges, constraints, noise_model, lambda e: 1.0, edge_filter, dtype, verbose,
+        device)
+    tm.log("Bipartite graph: {} cameras, {} timesteps, {} edges.".format(
+        packed.num_cams, packed.num_times, packed.num_edges))
+    C, T = packed.num_cams, packed.num_times
+    if _use_scale_path(C, T, dtype):
+        result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device)
+    else:
+        with tm.phase("Optimizing"):
+            arrs = _device_arrays(packed, tdt, device)
+            KR = _core.fold_constraints(
+                arrs["R_e"], arrs["k_r"], arrs["marker_idx"], arrs["R_con"],
+                packed.root_idx,
+            )
+            result = _core.so3_sync(
+                KR, arrs["k_r"], arrs["cam_idx"], arrs["time_idx"], C=C, T=T,
+                maxiter=maxiter, cert_tol=1e-6 / packed.k_r_scale,
+            )
+        if verbose:
+            _log_sync_result(tm, result)
+    r_cam = result.r_cam.cpu().numpy()
+    r_time = result.r_time.cpu().numpy()
+    out = {c: r_cam[i] for i, c in enumerate(packed.cam_ids)}
+    out.update({t + "_0": r_time[j] for j, t in enumerate(packed.time_ids)})
+    return out
+
+
+def bipartite_so3sync(
+    src_edges: dict,
+    constraints: dict,
+    noise_model: Callable,
+    edge_filter: Callable,
+    maxiter: int,
+    dtype=np.float32,
+    verbose: bool = True,
+    device=None,
+) -> dict:
+    """SO(3) sync on the full bipartite connection Laplacian: the
+    reference's small-graph variant (bipgo.py:18-142), with its own
+    conventions kept (:func:`.solver.core.so3_sync_small`): folding
+    ``R_e @ R_m @ R_0^T``, a (3n, 3n) Laplacian over cameras and time nodes,
+    one ``U S U^T`` dual for every node, exactly ``maxiter`` iterations and
+    untransposed (3, 3) output blocks keyed by camera id and ``"<t>_0"``.
+    Nodes are ordered as the reference orders its ``'c<id>'``/``'t<id>'``
+    names, cameras first.  O((3(C+T))^3) per iteration: for small graphs.
+    ``device``: where the solve runs; ``None`` is the CUDA card."""
+    device, dtype, tdt, tm, packed = _start(
+        src_edges, constraints, noise_model, lambda e: 1.0, edge_filter, dtype, verbose,
+        device)
+    C, T = packed.num_cams, packed.num_times
+    n = C + T
+    if verbose:
+        tm.log("New SO(3) graph contains {} nodes {} edges".format(n, packed.num_edges))
+    with tm.phase("Optimizing (full bipartite Laplacian)"):
+        arrs = _device_arrays(packed, tdt, device)
+        KR = _core.fold_constraints_small(
+            arrs["R_e"], arrs["k_r"], arrs["marker_idx"], arrs["R_con"], packed.root_idx,
+        )
+        # packed ids are sorted and every 'c*' name sorts before every 't*'
+        # one, so the reference's node order is [cameras..., times...]
+        r, evals, eigengap = _core.so3_sync_small(
+            KR, arrs["k_r"], arrs["cam_idx"], C + arrs["time_idx"], n=n, maxiter=maxiter,
+        )
+        r = r.cpu().numpy()
+    if verbose:
+        tm.log("Eigenvalues: {}  eigengap: {:1.3e}".format(
+            evals.cpu().numpy(), float(eigengap)))
+    out = {c: r[i] for i, c in enumerate(packed.cam_ids)}
+    out.update({t + "_0": r[C + j] for j, t in enumerate(packed.time_ids)})
     return out
 
 

@@ -38,7 +38,9 @@ __all__ = [
     "HIST_CAP",
     "SyncResult",
     "fold_constraints",
+    "fold_constraints_small",
     "so3_sync",
+    "so3_sync_small",
     "translation_rhs",
     "solve_translations_cg",
     "solve_translations_lsqr",
@@ -69,6 +71,17 @@ def fold_constraints(R_e, k_r, marker_idx, R_con, root_idx):
     R0 = R_con[root_idx]
     Rm = R_con[marker_idx]
     return k_r[:, None, None] * torch.einsum("eij,ekj,kl->eil", R_e, Rm, R0)
+
+
+def fold_constraints_small(R_e, k_r, marker_idx, R_con, root_idx):
+    """Folding of the reference's small-graph variant (bipgo.py:45):
+    ``k_r * R_edge @ R_m @ R_0^T``; the conjugation differs from
+    :func:`fold_constraints`'s ``R_edge @ R_m^T @ R_0``."""
+    if R_e.ndim == 2:
+        R_e = quat_to_mat(R_e)
+    R0 = R_con[root_idx]
+    Rm = R_con[marker_idx]
+    return k_r[:, None, None] * torch.einsum("eij,ejk,lk->eil", R_e, Rm, R0)
 
 
 def block_matrix(KR, cam_idx, time_idx, C: int, T: int):
@@ -111,6 +124,55 @@ def _bottom5_like_arpack(L):
     evals = evals * scale
     sel = torch.argsort(torch.abs(evals + 1e-6), stable=True)[:5]
     return evals[sel], evecs[:, sel]
+
+
+def so3_sync_small(KR, k_r, i_idx, j_idx, *, n: int, maxiter: int):
+    """The reference's small-graph ``bipartite_so3sync`` (bipgo.py:18-142),
+    faithfully, with the four ways it differs from the power-graph
+    algorithm:
+
+    - the full symmetric (3n, 3n) connection Laplacian over cameras and
+      time nodes (``n = C + T``, no power-graph elimination);
+    - one dual update for every node, ``Lambda = U S U^T`` from the SVDs of
+      the ``(R r)`` blocks (bipgo.py:119-133);
+    - the primal refresh ``r = U V^T`` with no determinant fix
+      (bipgo.py:127);
+    - exactly ``maxiter`` iterations, no certificate exit, and untransposed
+      output blocks (bipgo.py:101,139-141).
+
+    ``i_idx``/``j_idx``: per-edge node indices (camera, time) in the
+    caller's node order; the gauge anchors to node 0.  Returns ``(r (n, 3,
+    3), evals (5,), eigengap)``.
+    """
+    no_tf32()
+    dtype, dev = KR.dtype, KR.device
+    N = 3 * n
+    # duplicate (c, t) edges accumulate (the reference's dict aggregation);
+    # i and j index disjoint node sets, so B + B^T mirrors the lower blocks
+    B = block_matrix(KR, i_idx, j_idx, n, n)
+    B = B + B.T
+    deg = torch.zeros(n, dtype=dtype, device=dev).index_add_(0, i_idx, k_r).index_add_(
+        0, j_idx, k_r)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    lbd = deg[:, None, None] * eye3
+    r_out = eye3.expand(n, 3, 3)
+    evals5 = torch.zeros(5, dtype=dtype, device=dev)
+    eigengap = torch.zeros((), dtype=dtype, device=dev)
+    for _ in range(maxiter):
+        L = _add_block_diag(-B, lbd)
+        L = 0.5 * (L + L.T)
+        evals5, V5 = _bottom5_like_arpack(L)
+        eigengap = torch.abs(evals5[3] / evals5[2])
+
+        V3 = V5[:, :3]
+        r = V3 @ torch.linalg.inv(V3[:3, :3])
+        r_blocks = project_so3(r.reshape(n, 3, 3))
+
+        Z = (B @ r_blocks.reshape(N, 3)).reshape(n, 3, 3)
+        _, u, s, vt = svd3_so3(Z)
+        r_out = u @ vt  # no determinant fix (bipgo.py:127)
+        lbd = (u * s[:, None, :]) @ u.transpose(-1, -2)
+    return r_out, evals5, eigengap
 
 
 def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,

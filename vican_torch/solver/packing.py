@@ -9,21 +9,31 @@ noise-model callables per edge, parses node names, and emits
   ``edata (E, 9)``  ``[qw qx qy qz | tx ty tz | k_r k_t]`` (solver dtype)
   ``eidx  (E, 3)``  ``[cam, time, marker]`` int32
 
-the layout of ``vican_tpu.solver.packing``, whose pure-Python packer this
-module copies.  Poses are read through ``.R()``/``.t()``, so edge dicts
-built with either package's ``SE3`` pack identically.  Rotations travel as
-quaternions when every edge rotation is orthonormal and proper, otherwise
-as raw matrices (``R_e_raw``), which the reference folds as they are.
+the layout of ``vican_tpu.solver.packing``.  One pass over the dict is C
+(:mod:`vican_torch._native` ``fastpack.c``, built at first use), which also
+evaluates the recognized forms of the user's callables inline
+(:mod:`.specs`); the pure-Python packer is the path when the C build fails
+or under ``VICAN_TPU_NO_NATIVE=1``, with the same output (float32
+quaternions to rounding: the C pass converts from the float64 pose).
+:data:`last_packer` says which one ran.  Poses are read through their
+``_pose`` array (C) or ``.R()``/``.t()`` (Python), so edge dicts built with
+either package's ``SE3`` pack alike.  Rotations travel as quaternions when
+every edge rotation is orthonormal and proper, otherwise as raw matrices
+(``R_e_raw``), which the reference folds as they are.
 """
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import numpy as np
 
 __all__ = ["PackedProblem", "pack_problem", "pack_constraints", "packed_from_arrays"]
+
+# which packer the last pack_problem call ran: "c" or "python"
+last_packer: str | None = None
 
 
 def _mat_to_quat(R: np.ndarray) -> np.ndarray:
@@ -219,8 +229,47 @@ def _intern(names: list) -> tuple[list, np.ndarray]:
     return uniq, idx
 
 
+def _warn_unconstrained(n: int) -> None:
+    warnings.warn(
+        f"dropping {n} edge(s) whose marker has no constraint pose "
+        "(the reference raises KeyError here — bipgo.py:209)",
+        stacklevel=4,
+    )
+
+
+def _pack_native(fastpack, src_edges, marker2idx, noise_model_r, noise_model_t,
+                 edge_filter, dtype):
+    """The C pass (``packing.py:276-321`` of the JAX package): filtering,
+    key parsing, interning, quaternions, the orthonormality gate and the
+    fused buffers; only unrecognized callables run in the interpreter."""
+    from .specs import recognize_filter, recognize_noise
+
+    (edata_b, eidx_b, raw_b, cam_list, time_list, E, skipped,
+     ortho_ok) = fastpack.pack_edges3(
+        src_edges, edge_filter, noise_model_r, noise_model_t, marker2idx,
+        dtype == np.float64, recognize_filter(edge_filter),
+        recognize_noise(noise_model_r), recognize_noise(noise_model_t),
+    )
+    if skipped:
+        _warn_unconstrained(skipped)
+    if E == 0:
+        raise ValueError("edge_filter removed every edge; nothing to synchronize")
+    edata = np.frombuffer(edata_b, dtype=dtype).reshape(E, 9)
+    eidx = np.frombuffer(eidx_b, dtype=np.int32).reshape(E, 3)
+    cam_ids, eidx[:, 0] = _sorted_remap(cam_list, eidx[:, 0])
+    time_ids, eidx[:, 1] = _sorted_remap(time_list, eidx[:, 1])
+    if ortho_ok:
+        return edata, eidx, cam_ids, time_ids, True, None
+    # the raw matrices came out of the same pass, so the (possibly
+    # stateful) user callables are not run twice
+    R_e_raw = np.frombuffer(raw_b, np.float64).reshape(E, 3, 3).astype(dtype)
+    edata[:, :4] = 0.0  # the quaternion slots are unused on this path
+    return edata, eidx, cam_ids, time_ids, False, R_e_raw
+
+
 def _pack_edges(src_edges, marker2idx, noise_model_r, noise_model_t, edge_filter, dtype):
-    """One pass over the dict: filter, parse keys, fill the fused buffers."""
+    """The pure-Python pass over the dict: filter, parse keys, fill the
+    fused buffers."""
     kept = []
     skipped = 0
     for k, v in src_edges.items():
@@ -234,11 +283,7 @@ def _pack_edges(src_edges, marker2idx, noise_model_r, noise_model_t, edge_filter
             continue
         kept.append((k[0], tm[0], tm[2], v))
     if skipped:
-        warnings.warn(
-            f"dropping {skipped} edge(s) whose marker has no constraint pose "
-            "(the reference raises KeyError here — bipgo.py:209)",
-            stacklevel=3,
-        )
+        _warn_unconstrained(skipped)
     if not kept:
         raise ValueError("edge_filter removed every edge; nothing to synchronize")
     poses = [v["pose"] for _, _, _, v in kept]
@@ -273,13 +318,19 @@ def pack_problem(
     dtype=np.float64,
 ) -> PackedProblem:
     """Filter + parse the edge dict into a :class:`PackedProblem`."""
+    global last_packer
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
+
+    from .._native import get_fastpack
 
     dtype = np.dtype(dtype)
     marker_ids, R_con, t_con, root_idx = pack_constraints(constraints, dtype)
     marker2idx = {m: i for i, m in enumerate(marker_ids)}
-    edata, eidx, cam_ids, time_ids, has_quats, R_e_raw = _pack_edges(
+    fastpack = get_fastpack()
+    pack = _pack_edges if fastpack is None else partial(_pack_native, fastpack)
+    last_packer = "python" if fastpack is None else "c"
+    edata, eidx, cam_ids, time_ids, has_quats, R_e_raw = pack(
         src_edges, marker2idx, noise_model_r, noise_model_t, edge_filter, dtype
     )
 

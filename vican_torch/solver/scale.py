@@ -19,10 +19,12 @@ algorithm (reference vican/bipgo.py:145-350) with three substitutions:
    Rayleigh-Ritz extractions keep the eigenpairs at float32 quality.
 
 Float64 problems filter in full precision (``filter_dtype="auto"``), with
-``torch.matmul`` on the float64 operator: the kernel serves float32 only.
-Past the memory budget for ``B`` plus its bfloat16 copy the JAX package
-streams per-chunk re-scatters; that fallback is not ported yet, and this
-module raises there.
+``torch.matmul`` on the float64 operator: the kernels serve float32 only.
+Past the memory budget for ``B`` plus its bfloat16 copy (``materialize_budget``,
+6 GB) the operator is not materialized: the **streaming regime** re-scatters
+one time chunk at a time and builds the dense (3C, 3C) power graph once per
+iteration; its filter products run on a bfloat16 copy of the scaled
+Laplacian through the thin-matvec kernel of :mod:`.mv`.
 
 Control flow is host Python: the ``lax.cond(it == 0, ...)`` branches are
 ``if it == 0`` and the loop reads the certificate once per iteration.
@@ -34,7 +36,8 @@ import torch
 
 from ..ops.lie import project_so3, svd3_so3
 from ..utils import no_tf32, resolve_device
-from .core import HIST_CAP, SyncResult, block_matrix
+from .core import HIST_CAP, SyncResult, _add_block_diag, block_matrix
+from .mv import aligned_bf16, thin_mv
 from .pwr import filter_operator, pwr_apply
 
 __all__ = ["sort_edges_by_time", "so3_sync_large"]
@@ -196,19 +199,20 @@ def _make_operator(KR_s, cam_s, tloc_s, *, C, chunk_t, f_dtype, budget):
     ``(blockdiag(Lambda_C) - R~) * inv_scale`` and ``apply_pwr`` by the raw
     ``R~``; ``time_products(r)`` is ``rt_raw[t] = sum_i M_it^T r[i]``
     (bipgo.py:318), (T_pad, 3, 3).
+
+    The flat operator ``B (3C, 3 T_pad)`` plus its bfloat16 copy is
+    materialized when it fits ``budget`` bytes; past it the closures stream
+    per-chunk re-scatters (:func:`_streaming_operator`).
     """
     n_chunks = cam_s.shape[0]
     T_pad = n_chunks * chunk_t
     n = 3 * C
-    dtype, dev = KR_s.dtype, KR_s.device
     bytes_full = n * 3 * T_pad * KR_s.element_size()
     bytes_filt = n * 3 * T_pad * 2 if f_dtype is not None else 0
     if bytes_full + bytes_filt > budget:
-        raise NotImplementedError(
-            f"the {bytes_full + bytes_filt} B operator exceeds the {budget} B "
-            "budget; the streaming fallback of the large-graph route is not "
-            "ported yet"
-        )
+        return _streaming_operator(KR_s, cam_s, tloc_s, C=C, chunk_t=chunk_t,
+                                   f_dtype=f_dtype)
+    dev = KR_s.device
     chunk_base = torch.arange(n_chunks, device=dev)[:, None] * chunk_t
     gtime = (chunk_base + tloc_s.long()).reshape(-1)
     B = block_matrix(KR_s.reshape(-1, 3, 3), cam_s.reshape(-1).long(), gtime, C, T_pad)
@@ -239,6 +243,64 @@ def _make_operator(KR_s, cam_s, tloc_s, *, C, chunk_t, f_dtype, budget):
 
     def time_products(r):
         return (B.T @ r.reshape(n, 3)).reshape(T_pad, 3, 3)
+
+    return prepare, time_products
+
+
+def _streaming_operator(KR_s, cam_s, tloc_s, *, C, chunk_t, f_dtype):
+    """The streaming regime of :func:`_make_operator` (the JAX package's
+    ``scale.py:455-508``): no operator is kept between iterations; each
+    ``prepare`` re-scatters the time chunks one at a time into ``Bc (3C,
+    3 chunk_t)`` and accumulates the dense power graph ``R~ = sum_c Bc
+    Lambda_c Bc^T`` (3C, 3C), then forms the scaled Laplacian and, for
+    float32, its bfloat16 copy for the thin-matvec kernel.  Slow (a
+    (3C)^2 x 3T float32 product per iteration) but unbounded in T.
+
+    Memory: at 10k cameras each (3C, 3C) float32 matrix is 3.6 GB.  The
+    power graph is accumulated in place; the scaled Laplacian is one second
+    buffer, symmetrized out of place (an in-place ``L += L^T`` would read
+    entries it has already overwritten); the bfloat16 copy is half of one.
+    """
+    n_chunks = cam_s.shape[0]
+    n = 3 * C
+    dtype, dev = KR_s.dtype, KR_s.device
+
+    def chunk_block(c):
+        return block_matrix(KR_s[c].reshape(-1, 3, 3), cam_s[c], tloc_s[c], C, chunk_t)
+
+    def prepare(lbd_c, lbd_t, inv_scale):
+        pwr = torch.zeros((n, n), dtype=dtype, device=dev)
+        for c in range(n_chunks):
+            Bc = chunk_block(c)
+            lc = lbd_t[c * chunk_t:(c + 1) * chunk_t]
+            Y = torch.einsum("atb,tbd->atd", Bc.view(n, chunk_t, 3), lc).reshape(n, 3 * chunk_t)
+            pwr.addmm_(Y, Bc.T)  # in place: the one accumulator
+            del Bc, Y
+        # Ls = 0.5 inv_scale (L + L^T) with L = blockdiag(Lambda_C) - R~
+        Ls = torch.add(pwr, pwr.T, out=torch.empty_like(pwr))  # the second buffer
+        Ls.mul_(-0.5 * inv_scale)
+        _add_block_diag(Ls, (0.5 * inv_scale) * (lbd_c + lbd_c.transpose(-1, -2)))
+
+        def mv_full(X):
+            return Ls @ X
+
+        if f_dtype is not None:
+            Lb = aligned_bf16(Ls)
+
+            def mv_filt(X):
+                return thin_mv(Lb, X).to(dtype)
+        else:
+            mv_filt = mv_full
+        # the per-iteration power-graph build dominates this regime: the
+        # polish product is the full one, as in the JAX package
+        return mv_full, mv_filt, mv_full, lambda X: pwr @ X
+
+    def time_products(r):
+        r_flat = r.reshape(n, 3)
+        out = torch.empty((n_chunks * chunk_t, 3, 3), dtype=dtype, device=dev)
+        for c in range(n_chunks):
+            out[c * chunk_t:(c + 1) * chunk_t] = (chunk_block(c).T @ r_flat).view(chunk_t, 3, 3)
+        return out
 
     return prepare, time_products
 
@@ -360,6 +422,9 @@ def so3_sync_large(
 
         # camera dual (bipgo.py:300-315): width-3 matrix-free product
         rtr = apply_pwr(r_blocks.reshape(n, 3)).reshape(C, 3, 3)
+        # free the streaming regime's (3C, 3C) matrices before the next
+        # iteration builds its own
+        del mv_full, mv_filt, mv_polish, apply_pwr
         r_c, u, s, _ = svd3_so3(rtr)
         lbd_c = (u * s[:, None, :]) @ u.transpose(-1, -2)
 
