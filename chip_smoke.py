@@ -6,9 +6,10 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 It builds the port's CUDA kernels from ``vican_torch/csrc`` (one ``nvcc``
 per source, all at once) and the C edge packer, holds each kernel against
-its plain PyTorch version at the main paths' shapes (``thin_mv`` also at
-the shape of the JAX package's matvec probe) and times both, then drives
-two paths:
+its plain PyTorch version at the main paths' shapes (``pwr_apply`` at cells
+B's and C's in both its designs, one read and two; ``thin_mv`` also at the
+shape of the JAX package's matvec probe) and times both with each kernel's
+device split, then drives two paths:
 
 - the solver, ``vican_torch.bipgo.bipartite_se3sync``, on three synthetic
   problems: A, bench.py's large_shop problem (100 cameras, 10k timesteps,
@@ -32,6 +33,11 @@ One JSON line per phase; any failed check raises, so the exit code is not
 kernels' JSON line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, or without the rest of the repository beside it, it fails before
 printing any result.
+
+``python3 chip_smoke.py --kernels`` stops after the kernel phases;
+``python3 chip_smoke.py --split`` only times each solver kernel through its
+public wrapper (:func:`split_phase`), so a copy of this file times an
+older checkout's kernels too.
 """
 from __future__ import annotations
 
@@ -109,8 +115,26 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+def _rate_ms(fn, reps: int = 50) -> float:
+    """ms per call over ``reps`` warm calls launched back to back between
+    two CUDA events: the device time of a steady stream of calls, the host's
+    launch work hidden behind the device's as in the solver's filter loop."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _median_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` warm launches, each timed with CUDA events."""
+    """Median of ``reps`` warm launches, each timed alone with CUDA events:
+    the device time plus the host's launch work before the first kernel."""
     import torch
 
     fn()
@@ -207,27 +231,39 @@ def _ptxas_summary(log: str) -> dict:
     }
 
 
-def kernel_phase(dev):
-    """pwr_apply against its plain version at the 10k-camera shapes, on an
-    operator built like the main path's (1M random 3x3 rotation blocks in a
-    (3C, 3T) operator; Lambda_T the degree-normalized initial time dual
-    plus a random non-symmetric part, so a transposed Lambda would show; an
-    orthonormal X), and timed beside its bound and two library matmuls.
+def _kernel_split(fn, reps: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (``torch.profiler``
+    over ``reps`` warm calls), keyed by the kernel's name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    The bar, 1e-3 of max |Y|: the kernel sums Z = B^T X in float32 in
-    another order than cuBLAS, which can flip the bf16 rounding of single
-    entries of W = Lambda Z.  One flip moves every Y entry it touches by
-    2^-8 |W_q| |B_qi|; with ~300 nonzeros per column of this operator that
-    is ~6e-5 of max |Y| (1.2e-4 measured at w=10 on an H100).  1e-3 admits
-    a dozen flips on one entry; an indexing or masking fault shows at O(1).
-    """
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            split[e.key[:90]] = us / reps * 1e-3
+    return split
+
+
+def filter_problem(dev, cfg: dict):
+    """``(Bt, lbd, n, T)`` built like the main path's at ``cfg``'s size:
+    random 3x3 rotation blocks on the config's edges in a (3C, 3T)
+    operator, every camera and timestep touched; Lambda_T the
+    degree-normalized initial time dual plus a random non-symmetric part,
+    so a transposed Lambda would show."""
     import torch
 
     from vican_torch.ops.lie import quat_to_mat
     from vican_torch.solver.core import block_matrix
-    from vican_torch.solver.pwr import filter_operator, pwr_apply, pwr_apply_plain
+    from vican_torch.solver.pwr import filter_operator
 
-    C, T, E = CONFIG_B["n_cams"], CONFIG_B["n_times"], CONFIG_B["n_edges"]
+    C, T, E = cfg["n_cams"], cfg["n_times"], cfg["n_edges"]
     g = torch.Generator(device=dev).manual_seed(0)
     cam = torch.randint(0, C, (E,), generator=g, device=dev)
     tim = torch.randint(0, T, (E,), generator=g, device=dev)
@@ -238,39 +274,114 @@ def kernel_phase(dev):
     deg_t = torch.zeros(T, device=dev).index_add_(0, tim, torch.ones(E, device=dev))
     lbd = torch.eye(3, device=dev) / deg_t[:, None, None]
     lbd = lbd + 0.1 * torch.rand((T, 3, 3), generator=g, device=dev) * lbd[:, :1, :1]
-    n = 3 * C
+    return Bt, lbd, 3 * C, T
 
-    def library(X):
-        # yardstick only: two bf16 matmuls with the blockwise Lambda between
-        w = X.shape[1]
-        Z = torch.matmul(Bt[:, :n], X.to(torch.bfloat16)).float()
-        Z = torch.einsum("tab,tbw->taw", lbd, Z.view(T, 3, w)).reshape(3 * T, w)
-        return torch.matmul(Bt[:, :n].T, Z.to(torch.bfloat16))
+
+def split_phase(dev) -> None:
+    """Each hand kernel of the solver through its public wrapper alone,
+    ``pwr_apply`` at cells B's and C's shapes (w = 1, 10, 16) and
+    ``thin_mv`` at :func:`thin_mv_cases`: ms per call and the device ms of
+    each kernel it launches.  Touches no option of the wrappers, so the same
+    lines time an earlier design of the kernels
+    (``python3 chip_smoke.py --split``)."""
+    import torch
+
+    from vican_torch.solver.mv import thin_mv
+    from vican_torch.solver.pwr import pwr_apply
+
+    def timed(fn):
+        return dict(ms=_rate_ms(fn), launch_ms=_median_ms(fn), kernels=_kernel_split(fn))
+
+    for cell, cfg in (("B", CONFIG_B), ("C", CONFIG_C)):
+        Bt, lbd, n, T = filter_problem(dev, cfg)
+        g = torch.Generator(device=dev).manual_seed(1)
+        for w in (1, 10, 16):
+            X = torch.randn((n, w), generator=g, device=dev)
+            emit("pwr_split", cell=cell, shape=[3 * T, n, w],
+                 **timed(lambda: pwr_apply(Bt, lbd, X)))
+        del Bt, lbd
+        torch.cuda.empty_cache()
+    for case, B, X in thin_mv_cases(dev):
+        emit("thin_mv_split", case=case, shape=[*B.shape, X.shape[1]],
+             **timed(lambda: thin_mv(B, X)))
+    torch.cuda.empty_cache()
+
+
+def kernel_phase(dev):
+    """pwr_apply against its plain version at cells B's and C's shapes
+    (10k and 2048 cameras, 10k timesteps) on operators built like the main
+    path's (:func:`filter_problem`) and an orthonormal X, in both designs
+    (one read of Bt and two), each timed beside the bound, the plain
+    version and two library matmuls, with its kernels' device split.
+
+    The bar, 1e-3 of max |Y|: the kernel sums Z = B^T X in float32 in
+    another order than cuBLAS, which can flip the bf16 rounding of single
+    entries of W = Lambda Z.  One flip moves every Y entry it touches by
+    2^-8 |W_q| |B_qi|; with ~300 nonzeros per column of this operator that
+    is ~6e-5 of max |Y| (1.2e-4 measured at w=10 on an H100).  1e-3 admits
+    a dozen flips on one entry; an indexing or masking fault shows at O(1).
+    Returns the rows of the design the wrapper picks, keyed by (cell, w).
+    """
+    import torch
+
+    from vican_torch import _kernels
+    from vican_torch.solver import pwr
+    from vican_torch.solver.pwr import pwr_apply, pwr_apply_plain, pwr_plan, single_capacity
+    from vican_torch.solver.tiles import SINGLE_P
 
     rows = {}
-    for w in (1, 10, 16):
-        X, _ = torch.linalg.qr(torch.randn((n, w), generator=g, device=dev))
-        out = pwr_apply(Bt, lbd, X)
-        torch.cuda.synchronize()
-        ref = pwr_apply_plain(Bt, lbd, X)
-        abs_err = float((out - ref).abs().max())
-        rel_err = abs_err / float(ref.abs().max())
-        if not (rel_err < KERNEL_REL_TOL and torch.isfinite(out).all()):
-            raise AssertionError(f"pwr_apply w={w}: rel err {rel_err} >= {KERNEL_REL_TOL}")
-        ms = _median_ms(lambda: pwr_apply(Bt, lbd, X))
-        plain_ms = _median_ms(lambda: pwr_apply_plain(Bt, lbd, X))
-        library_ms = _median_ms(lambda: library(X))
-        nbytes = Bt.numel() * 2 + n * w * 2 + T * 9 * 4 + n * w * 4
-        ops = 2 * 2 * 3 * T * n * w
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
-        rows[w] = dict(w=w, max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=nbytes, ops=ops)
-        emit("kernel", name="pwr_apply", shape=[3 * T, n, w], **rows[w])
-    del Bt
-    torch.cuda.empty_cache()
+    for cell, cfg in (("B", CONFIG_B), ("C", CONFIG_C)):
+        Bt, lbd, n, T = filter_problem(dev, cfg)
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def library(X):
+            # yardstick only: two bf16 matmuls with the blockwise Lambda between
+            w = X.shape[1]
+            Z = torch.matmul(Bt[:, :n], X.to(torch.bfloat16)).float()
+            Z = torch.einsum("tab,tbw->taw", lbd, Z.view(T, 3, w)).reshape(3 * T, w)
+            return torch.matmul(Bt[:, :n].T, Z.to(torch.bfloat16))
+
+        for w in (1, 10, 16):
+            X, _ = torch.linalg.qr(torch.randn((n, w), generator=g, device=dev))
+            ref = pwr_apply_plain(Bt, lbd, X)
+            plain_ms = _rate_ms(lambda: pwr_apply_plain(Bt, lbd, X))
+            library_ms = _rate_ms(lambda: library(X))
+            nbytes = Bt.numel() * 2 + n * w * 2 + T * 9 * 4 + n * w * 4
+            ops = 2 * 2 * 3 * T * n * w
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+            occ = pwr.phase_occupancy(dev, w)
+            picked = pwr_plan(n, T, w, _kernels.sm_count(dev), None, occ).design
+            for design in ("single", "two"):
+                plan = pwr_plan(n, T, w, _kernels.sm_count(dev), design, occ)
+                if design == "single":
+                    sp = plan.single
+                    how = dict(cs=sp.cs, panel_timesteps=SINGLE_P, cols_per_cta=sp.cc, smem=sp.smem,
+                               clusters=min(sp.clusters, single_capacity(sp.cs, w, sp.mt, dev)))
+                else:
+                    how = dict(splits=[plan.phase1.splits, plan.phase2.splits])
+                out = pwr_apply(Bt, lbd, X, design=design)
+                torch.cuda.synchronize()
+                abs_err = float((out - ref).abs().max())
+                rel_err = abs_err / float(ref.abs().max())
+                again = pwr_apply(Bt, lbd, X, design=design)
+                if not (rel_err < KERNEL_REL_TOL and torch.isfinite(out).all()):
+                    raise AssertionError(f"pwr_apply {cell} w={w} {design}: rel err {rel_err}")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"pwr_apply {cell} w={w} {design}: not bit for bit")
+                row = dict(w=w, design=design, picked=design == picked, plan=how,
+                           max_abs_err=abs_err, max_rel_err=rel_err,
+                           ms=_rate_ms(lambda: pwr_apply(Bt, lbd, X, design=design)),
+                           launch_ms=_median_ms(lambda: pwr_apply(Bt, lbd, X, design=design)),
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=nbytes, ops=ops,
+                           split=_kernel_split(lambda: pwr_apply(Bt, lbd, X, design=design)))
+                emit("kernel", name="pwr_apply", cell=cell, shape=[3 * T, n, w], **row)
+                if design == picked:
+                    rows[cell, w] = row
+        del Bt, lbd
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -282,9 +393,10 @@ def thin_mv_phase(dev) -> dict:
     yardstick.  Returns the rows keyed by case."""
     import torch
 
-    from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
+    from vican_torch.solver import mv
+    from vican_torch.solver.mv import thin_mv, thin_mv_plain
+    from vican_torch.solver.tiles import mma_plan, n_tiles
 
-    g = torch.Generator(device=dev).manual_seed(3)
     rows = {}
 
     def check(case, B, X):
@@ -298,28 +410,48 @@ def thin_mv_phase(dev) -> dict:
         if not (rel_err < MV_REL_TOL and torch.isfinite(out).all()):
             raise AssertionError(f"thin_mv {case}: rel err {rel_err} >= {MV_REL_TOL}")
         Xb = X.to(torch.bfloat16)
-        ms = _median_ms(lambda: thin_mv(B, X))
-        plain_ms = _median_ms(lambda: thin_mv_plain(B, X))
+        ms = _rate_ms(lambda: thin_mv(B, X))
+        launch_ms = _median_ms(lambda: thin_mv(B, X))
+        plain_ms = _rate_ms(lambda: thin_mv_plain(B, X))
         # yardstick only, never called by the port: cuBLAS accumulates in
         # float32 but rounds Y to bfloat16
-        library_ms = _median_ms(lambda: torch.matmul(B, Xb))
+        library_ms = _rate_ms(lambda: torch.matmul(B, Xb))
         nbytes = M * K * 2 + K * w * 2 + M * w * 4
         ops = 2 * M * K * w
         t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+        again = thin_mv(B, X)
+        if not torch.equal(out, again):
+            raise AssertionError(f"thin_mv {case}: not bit for bit")
         rows[case] = dict(shape=[M, K, w], max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-                          plain_ms=plain_ms, library_ms=library_ms,
+                          launch_ms=launch_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          split=_kernel_split(lambda: thin_mv(B, X)),
+                          plan=mma_plan(M, K, w, mv._slots(dev, n_tiles(w))).__dict__,
                           bound_ms=max(t_bytes, t_ops) * 1e3,
                           bound_by="bytes" if t_bytes >= t_ops else "operations",
                           bytes=nbytes, ops=ops, vector_rows=B.stride(0) % 8 == 0)
         emit("thin_mv_kernel", case=case, library="torch.matmul, bf16 out (yardstick)",
              **rows[case])
 
+    for case, B, X in thin_mv_cases(dev):
+        check(case, B, X)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def thin_mv_cases(dev):
+    """The operands of :func:`thin_mv_phase`, one case at a time:
+    ``(case, B, X)``."""
+    import torch
+
+    from vican_torch.solver.mv import aligned_bf16
+
+    g = torch.Generator(device=dev).manual_seed(3)
     # the probe's operands (mv_kernel_probe.py:72-81)
     M, K, w = PROBE_SHAPE
     fi = lambda k: torch.arange(k, dtype=torch.float32, device=dev)  # noqa: E731
     B = torch.cos(fi(M)[:, None] * 1e-3 + fi(K)[None, :] * 1e-5).to(torch.bfloat16)
     X = torch.cos(fi(K)[:, None] + fi(w)[None, :]).to(torch.bfloat16)
-    check("probe", B, X)
+    yield "probe", B, X
     del B, X
 
     # the streaming regime's operator: symmetric, 3C = 30000
@@ -331,15 +463,12 @@ def thin_mv_phase(dev) -> dict:
     del S
     for w in (10, 1):
         X, _ = torch.linalg.qr(torch.randn((n, w), generator=g, device=dev))
-        check(f"streaming w={w}", B, X)
+        yield f"streaming w={w}", B, X
     del B
 
     B = aligned_bf16(torch.randn((n - 1, n + 1), generator=g, device=dev))
     X = torch.randn((n + 1, 10), generator=g, device=dev)
-    check("ragged", B, X)
-    del B, X
-    torch.cuda.empty_cache()
-    return rows
+    yield "ragged", B, X
 
 
 def config_d_phase(dev) -> dict:
@@ -410,7 +539,7 @@ def config_d_phase(dev) -> dict:
                            launches={"thin_mv": thin_mv.launches,
                                      "pwr_apply": pwr_apply.launches})
     del res
-    trace = _trace_summary(prof, "streaming solve", "thin_mv")
+    trace = _trace_summary(prof, "streaming solve", "thin::")
     d = distance_so3(out["streaming"]["r_cam"].double(), out["materialized"]["r_cam"].double())
     d_max = float(d.max())
     emit("config_D_regimes", max_cam_rot_diff_deg=d_max,
@@ -534,9 +663,10 @@ def threshold_phase(frames) -> dict:
                        "max_abs_err": float((out.int() - ref.int()).abs().max())})
         if diff:
             raise AssertionError(f"multi_threshold {name}: {diff} bytes differ from plain")
-    ms = _median_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
-    plain_ms = _median_ms(lambda: multi_threshold_plain(batch, WIN_SIZES, C))
-    library_ms = _median_ms(lambda: library(batch))
+    ms = _rate_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
+    launch_ms = _median_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
+    plain_ms = _rate_ms(lambda: multi_threshold_plain(batch, WIN_SIZES, C))
+    library_ms = _rate_ms(lambda: library(batch))
     B, H, W = batch.shape
     nbytes = B * H * W + B * len(WIN_SIZES) * H * (-(-W // 8))
     # the int32 operations the function needs, not this design's: one
@@ -546,7 +676,8 @@ def threshold_phase(frames) -> dict:
     R = max(WIN_SIZES) // 2
     ops = B * (H + 2 * R) * (W + 2 * R) * 2 + B * H * W * (1 + 5 * len(WIN_SIZES))
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_OPS
-    row = dict(shape=list(batch.shape), checks=checks, ms=ms, plain_ms=plain_ms,
+    row = dict(shape=list(batch.shape), checks=checks, ms=ms, launch_ms=launch_ms,
+               plain_ms=plain_ms,
                library_ms=library_ms, bytes=nbytes, ops=ops,
                bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
                bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -698,8 +829,13 @@ def main() -> None:
     emit("build", seconds=build_s, packer_seconds=time.perf_counter() - t0,
          kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
 
+    if "--split" in sys.argv:
+        split_phase(dev)
+        return
     rows = kernel_phase(dev)
     mv_rows = thin_mv_phase(dev)
+    if "--kernels" in sys.argv:
+        return
 
     # A: bench.py's problem, dense route, against the JAX package's accuracy
     prob = make_problem_arrays(**CONFIG_A)
@@ -765,7 +901,7 @@ def main() -> None:
 
     th = perception_phases(dev)
 
-    w10 = rows[10]
+    w10 = rows["B", 10]
     kernels = [{
         "name": "pwr_apply", "route": "cuda", "source": "vican_torch/csrc/pwr.cu",
         "replaces": "vican_tpu/solver/pallas_pwr.py:65",
@@ -773,7 +909,8 @@ def main() -> None:
         "max_rel_err": max(r["max_rel_err"] for r in rows.values()),
         "ms": w10["ms"], "kernel_ms": w10["ms"], "plain_ms": w10["plain_ms"],
         "bound_ms": w10["bound_ms"], "bound_by": w10["bound_by"],
-        "library_ms": w10["library_ms"], "w": 10,
+        "library_ms": w10["library_ms"], "w": 10, "design": w10["design"],
+        "cell_C": {k: rows["C", 10][k] for k in ("ms", "bound_ms", "library_ms", "design")},
     }, {
         "name": "multi_threshold", "route": "cuda", "source": "vican_torch/csrc/threshold.cu",
         "replaces": "vican_tpu/ops/pallas/threshold.py:33",

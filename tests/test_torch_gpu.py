@@ -18,7 +18,8 @@ from vican_torch.geometry import distance_SO3
 from vican_torch.ops.threshold import multi_threshold, multi_threshold_plain
 from vican_torch.perception import estimate_pose_gray
 from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
-from vican_torch.solver.pwr import filter_operator, pwr_apply, pwr_apply_plain
+from vican_torch.solver.pwr import filter_operator, pwr_apply, pwr_apply_plain, pwr_plan
+from vican_torch.solver.tiles import single_plan
 from vican_torch.synthetic import make_problem_arrays
 
 
@@ -30,25 +31,44 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("design", ["single", "two"])
 @pytest.mark.parametrize("n,T,w", [
     (48, 70, 5), (64, 64, 1), (48, 33, 10), (128, 32, 7), (21, 10, 16),
     (3000, 1000, 10), (3000, 1000, 1),
+    # both sides of each cluster size of the single read (tiles.single_plan:
+    # 1920 columns a CTA, clusters of 1, 2, 4, 8, 16), n and T not multiples
+    # of 16
+    (1920, 17, 10), (1921, 17, 3), (3840, 9, 16), (3841, 9, 10), (7680, 5, 10),
+    (7681, 5, 1), (15360, 3, 10), (15361, 3, 16), (30720, 2, 10),
+    # past the single read: the two reads only
+    (30721, 2, 10), (30722, 11, 16),
 ])
-def test_cuda_kernel_matches_plain(cuda, n, T, w):
+def test_cuda_kernel_matches_plain(cuda, n, T, w, design):
     rng = np.random.default_rng(3)
     B = torch.from_numpy(rng.standard_normal((n, 3 * T)).astype(np.float32)).to(cuda)
     lbd = torch.from_numpy(rng.standard_normal((T, 3, 3)).astype(np.float32)).to(cuda)
     X = torch.from_numpy(rng.standard_normal((n, w)).astype(np.float32)).to(cuda)
     Bt = filter_operator(B)
+    picked = pwr_plan(n, T, w).design
+    if design == "single" and single_plan(n, T) is None:
+        assert picked == "two"
+        with pytest.raises(ValueError):
+            pwr_apply(Bt, lbd, X, design=design)
+        return
     before = pwr_apply.launches
-    out = pwr_apply(Bt, lbd, X)
+    out = pwr_apply(Bt, lbd, X, design=design)
     torch.cuda.synchronize()
     assert pwr_apply.launches == before + 1
     ref = pwr_apply_plain(Bt, lbd, X)
+    assert out.shape == ref.shape == (n, w) and out.dtype == torch.float32
     err = ((out - ref).abs().max() / ref.abs().max()).item()
     # a float32 sum order other than cuBLAS's may flip the bf16 rounding of
     # single W entries (chip_smoke.py:kernel_phase); a fault shows at O(1)
     assert err < 1e-3, err
+    # no atomics, partials summed in a fixed order: bit for bit again
+    assert torch.equal(out, pwr_apply(Bt, lbd, X, design=design))
+    if design == picked:
+        assert torch.equal(out, pwr_apply(Bt, lbd, X))
 
 
 @pytest.mark.gpu
@@ -75,12 +95,13 @@ def test_large_route_on_the_card_matches_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("M,K,w,aligned", [
     (1000, 2048, 10, True), (1000, 2048, 1, True), (999, 1003, 10, True),
     (333, 517, 16, False), (257, 4099, 128, True), (130, 77, 37, False),
+    (513, 2050, 128, False), (200, 999, 200, True), (77, 130, 200, False),
 ])
 def test_thin_mv_kernel_matches_plain(cuda, M, K, w, aligned):
     """The thin-matvec kernel against its plain version: aligned rows (the
     vector path) and rows at an odd stride (the entry-by-entry path), M and
-    K not multiples of 8, w across the one-pass widths and the 16-column
-    passes."""
+    K not multiples of 8, w across the n8-tile widths, 128 columns and
+    past them (two 128-column slices of the grid)."""
     rng = np.random.default_rng(M + K + w)
     A = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda)
     B = aligned_bf16(A) if aligned else A.to(torch.bfloat16)

@@ -14,7 +14,7 @@ def test_port_imports_neither_jax_nor_vican_tpu():
         "import vican_torch, vican_torch.bipgo, vican_torch.solver.scale\n"
         "import vican_torch.solver.pwr, vican_torch._kernels, vican_torch.synthetic\n"
         "import vican_torch.solver.mv, vican_torch.solver.specs, vican_torch._native\n"
-        "import vican_torch.solver.packing\n"
+        "import vican_torch.solver.packing, vican_torch.solver.tiles\n"
         "assert vican_torch._native.get_fastpack() is not None\n"
         "import vican_torch.perception, vican_torch.cam, vican_torch.render\n"
         "import vican_torch.ops.detect, vican_torch.ops.pnp, vican_torch.ops.threshold\n"

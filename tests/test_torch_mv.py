@@ -1,7 +1,7 @@
 """The thin matvec: the port's plain version against the JAX package's
 Pallas probe kernel (interpret mode on the CPU) and against XLA's bf16 x
-bf16 -> f32 matmul.  The CUDA kernel itself is tested in
-tests/test_torch_gpu.py."""
+bf16 -> f32 matmul, and the kernel's launch plan.  The CUDA kernel itself
+is tested in tests/test_torch_gpu.py."""
 import functools
 import importlib.util
 import os
@@ -15,6 +15,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
+from vican_torch.solver.tiles import XT_ALIGN, mma_plan, stage_depth
 
 _PROBE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "benchmarks", "mv_kernel_probe.py")
@@ -110,3 +111,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         thin_mv(B.T, torch.zeros(8, 2))  # column stride
     with pytest.raises(ValueError):
         thin_mv(B, torch.zeros(15, 2))  # K mismatch
+
+
+@pytest.mark.parametrize("w", [1, 8, 9, 16, 17, 32, 33, 64, 65, 127, 128, 129, 200, 256, 300])
+def test_launch_plan_passes_and_splits(w):
+    """The thin-matvec grid: one launch, ceil(w / 128) column slices of at
+    most 16 n8 tiles, a transposed X wide enough for every stage, and K
+    splits that cover K, none empty, at most 16, fewer where the partials
+    would cost over 1% of the operator's bytes."""
+    for M, K in ((37, 101), (1003, 999), (30000, 30000), (30208, 31744)):
+        plan = mma_plan(M, K, w)
+        assert plan.passes == -(-w // 128)
+        assert plan.nt in (1, 2, 4, 8, 16) and 8 * plan.nt >= min(w, 128)
+        assert plan.nt == 16 or plan.passes == 1
+        assert plan.xt_rows == (128 * plan.passes if plan.passes > 1 else 8 * plan.nt)
+        assert plan.ldx % XT_ALIGN == 0 and plan.ldx >= K
+        depth = stage_depth(plan.nt, False)
+        assert plan.splits * plan.tps * depth >= K > (plan.splits - 1) * plan.tps * depth
+        assert 1 <= plan.splits <= 16
+        assert plan.splits == 1 or plan.splits <= K // (400 * w)

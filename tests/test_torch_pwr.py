@@ -1,6 +1,7 @@
 """The CheFSI filter product: the port's plain version against the Pallas
-kernel (interpret mode on the CPU) and the transposed layout.  The CUDA
-kernel itself is tested in tests/test_torch_gpu.py."""
+kernel (interpret mode on the CPU), the transposed layout and the CUDA
+kernels' launch plans.  The CUDA kernels themselves are tested in
+tests/test_torch_gpu.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +9,9 @@ import torch
 
 from vican_tpu.solver.pallas_pwr import PANEL, lam_panels, panels_from_flat
 from vican_tpu.solver.pallas_pwr import pwr_apply as jax_pwr_apply
-from vican_torch.solver.pwr import LD_ALIGN, filter_operator, pwr_apply, pwr_apply_plain
+from vican_torch.solver.pwr import LD_ALIGN, filter_operator, pwr_apply, pwr_apply_plain, pwr_plan
+from vican_torch.solver.tiles import (CLUSTER_SIZES, SINGLE_MAX_N, SINGLE_MT, SINGLE_P, SMEM_LIMIT,
+                                      XT_ALIGN, n_tiles, single_plan, single_smem, stage_depth)
 
 SHAPES = [
     (48, 70, 5),    # T not a panel multiple
@@ -65,3 +68,51 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert torch.equal(out, pwr_apply_plain(Bt, torch.from_numpy(lbd), torch.from_numpy(X)))
     with pytest.raises(ValueError):
         pwr_apply(Bt, torch.from_numpy(lbd), torch.zeros(48, 17))
+
+
+# both sides of every switch of the single read's plan (clusters of 1, 2,
+# 4, 8, 16 CTAs at 1920 columns a CTA; the two reads past 30720), ragged n
+_PLAN_N = sorted({*range(3, 400, 13), 1919, 1920, 1921, 3839, 3840, 3841, 7680, 7681,
+                  15360, 15361, 17000, 30000, 30719, 30720, 30721, 36000})
+
+
+@pytest.mark.parametrize("w", [1, 2, 8, 9, 10, 16])
+def test_launch_plan_covers_the_camera_axis(w):
+    """For n from 3 to 36000: the single read's CTA column slices cover n
+    within the shared memory a block may use, in the smallest cluster that
+    holds them; the two reads run only past 16 x 1920 columns, with
+    phases whose splits cover their reduction axes."""
+    for n in _PLAN_N:
+        for T in (1, 7, 10_000):
+            plan = pwr_plan(n, T, w)
+            single = single_plan(n, T)
+            assert (plan.design == "single") == (n <= SINGLE_MAX_N) == (single is not None)
+            if single is not None:
+                assert plan.single == single
+                cs, cc = single.cs, single.cc
+                assert cs in CLUSTER_SIZES and cc % 128 == 0 and cc <= 1920
+                assert cs * cc >= n  # slices [r cc, (r + 1) cc) cover [0, n)
+                assert cs == 1 or -(-n // (cs // 2 * 128)) > SINGLE_MT  # no smaller cluster holds n
+                assert single.smem == single_smem(cc) <= SMEM_LIMIT
+                assert 1 <= single.clusters <= min(132 // cs, -(-T // SINGLE_P))
+            else:
+                for phase, M, K, trans in ((plan.phase1, 3 * T, n, False),
+                                           (plan.phase2, n, 3 * T, True)):
+                    nt = n_tiles(w)
+                    assert phase.nt == nt and phase.xt_rows == 8 * nt and phase.passes == 1
+                    assert phase.ldx % XT_ALIGN == 0 and phase.ldx >= K
+                    depth = stage_depth(nt, trans)
+                    assert phase.splits * phase.tps * depth >= K > (phase.splits - 1) * phase.tps * depth
+
+
+def test_design_is_checked_and_cpu_takes_plain():
+    B, lbd, X = _inputs(48, 33, 10, seed=4)
+    Bt = filter_operator(torch.from_numpy(B))
+    args = (Bt, torch.from_numpy(lbd), torch.from_numpy(X))
+    ref = pwr_apply_plain(*args)
+    for design in ("single", "two"):
+        assert torch.equal(pwr_apply(*args, design=design), ref)
+    with pytest.raises(ValueError):
+        pwr_apply(*args, design="three")
+    with pytest.raises(ValueError):
+        pwr_plan(40_000, 10, 10, design="single")

@@ -34,9 +34,11 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source -> {C function: argtypes}; the CUDA stream is appended to each call
 SOURCES = {
-    "pwr": {"pwr_apply_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "pwr": {"pwr_apply_bf16": [*[_P] * 8, *[_I] * 10, _P],
+            "pwr_single_bf16": [*[_P] * 5, *[_I] * 7, _P],
+            "pwr_single_clusters": [_I, _I, _I], "pwr_mma_occupancy": [_I, _I]},
     "threshold": {"threshold_pack_u8": [_P, _P, *[_I] * 14, _F, _P]},
-    "mv": {"thin_mv_bf16": [_P, _P, _P, *[_I] * 6, _P]},
+    "mv": {"thin_mv_bf16": [*[_P] * 5, *[_I] * 9, _P], "thin_mv_occupancy": [_I]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -54,10 +56,17 @@ def _nvcc() -> str:
 
 
 def _paths(name: str) -> tuple[str, str]:
+    """The source and its library, named by a hash of the source, every
+    header under ``csrc/`` (an edit to a shared header rebuilds its
+    includers) and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, os.path.join(BUILD, f"{name}_{digest}.so")
+    h = hashlib.sha256()
+    for path in [src, *sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                              if f.endswith(".cuh"))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD, f"{name}_{h.hexdigest()[:12]}.so")
 
 
 def build(names=None) -> dict[str, dict]:
@@ -122,3 +131,21 @@ def launch(name: str, fn: str, *args) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
+
+
+def call(name: str, fn: str, *args: int) -> int:
+    """Call host function ``fn`` of source ``name`` with C ints (no stream)
+    and return its int result."""
+    return getattr(_load(name), fn)(*(int(a) for a in args))
+
+
+_sms: dict[int, int] = {}
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (asked once)."""
+    idx = torch.device(dev).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]

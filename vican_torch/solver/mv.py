@@ -18,10 +18,9 @@ from __future__ import annotations
 import torch
 
 from .pwr import LD_ALIGN
+from .tiles import mma_plan, n_tiles
 
 __all__ = ["aligned_bf16", "thin_mv", "thin_mv_plain"]
-
-_WIDE = 16  # columns per kernel pass when w > 16 (mv.cu:WIDE)
 
 
 def aligned_bf16(A: torch.Tensor) -> torch.Tensor:
@@ -64,7 +63,9 @@ def thin_mv(B: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     CPU tensors take :func:`thin_mv_plain`.  CUDA tensors launch the kernel
     of ``vican_torch/csrc/mv.cu``, or raise; each launch adds one to
     ``thin_mv.launches``.  Rows of ``B`` on 16-byte boundaries (see
-    :func:`aligned_bf16`) are read as vectors, others entry by entry.
+    :func:`aligned_bf16`) are copied as vectors, others entry by entry.
+    One launch takes every column of ``X`` (in 128-column grid slices past
+    128, :func:`vican_torch.solver.tiles.mma_plan`).
     """
     _check(B, X)
     if B.device.type != "cuda":
@@ -73,16 +74,35 @@ def thin_mv(B: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
     M, K = B.shape
     w = X.shape[1]
-    ldx = -(-K // LD_ALIGN) * LD_ALIGN
-    rows = w if w <= _WIDE else -(-w // _WIDE) * _WIDE
-    Xt = torch.zeros((rows, ldx), dtype=torch.bfloat16, device=B.device)
-    Xt[:w, :K].copy_(X.T)
+    plan = mma_plan(M, K, w, _slots(B.device, n_tiles(w)))
+    X = X.to(torch.float32).contiguous()  # the kernel rounds it to bf16
+    Xt = torch.empty((plan.xt_rows, plan.ldx), dtype=torch.bfloat16, device=B.device)
     Y = torch.empty((M, w), dtype=torch.float32, device=B.device)
+    Ypart = (torch.empty((plan.splits, M, w), dtype=torch.float32, device=B.device)
+             if plan.splits > 1 else Y)
     ldb = B.stride(0)
     vec = int(ldb % LD_ALIGN == 0 and B.data_ptr() % 16 == 0)
-    _kernels.launch("mv", "thin_mv_bf16", B, Xt, Y, M, K, ldb, ldx, w, vec)
+    _kernels.launch("mv", "thin_mv_bf16", B, X, Xt, Ypart, Y, M, K, ldb, plan.ldx, w, plan.nt,
+                    plan.splits, plan.tps, vec)
     thin_mv.launches += 1
     return Y
 
 
 thin_mv.launches = 0
+
+_blocks_per_sm: dict = {}
+
+
+def _slots(dev, nt: int) -> int:
+    """Blocks of the ``nt`` instance the card holds at once: SMs x blocks
+    per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), asked once."""
+    from .. import _kernels
+
+    key = (nt, torch.device(dev).index)
+    if key not in _blocks_per_sm:
+        with torch.cuda.device(dev):
+            blocks = _kernels.call("mv", "thin_mv_occupancy", nt)
+        if blocks <= 0:
+            raise RuntimeError(f"thin_mv_occupancy({nt}): {blocks}")
+        _blocks_per_sm[key] = blocks
+    return _kernels.sm_count(dev) * _blocks_per_sm[key]

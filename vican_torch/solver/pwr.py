@@ -24,9 +24,15 @@ over three neighbouring rows.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
-__all__ = ["filter_operator", "pwr_apply", "pwr_apply_plain", "LD_ALIGN"]
+from .tiles import MmaPlan, SinglePlan, mma_plan, single_plan
+
+__all__ = ["filter_operator", "pwr_apply", "pwr_apply_plain", "pwr_plan", "PwrPlan",
+           "LD_ALIGN"]
 
 LD_ALIGN = 8  # bf16 elements per 16-byte vector
 
@@ -56,16 +62,37 @@ def pwr_apply_plain(Bt: torch.Tensor, lbd_t: torch.Tensor, X: torch.Tensor) -> t
     return Bf.T @ Z.to(torch.bfloat16).float()
 
 
-_K2_TILE = 1024  # camera columns per phase-2 block (pwr.cu:K2_TILE)
+@dataclass(frozen=True)
+class PwrPlan:
+    """How one ``pwr_apply`` launch runs: ``design`` "single" (one read of
+    ``Bt``, :class:`~.tiles.SinglePlan` in ``single``) or "two" (two reads
+    on the tile engine: ``phase1`` Z = Bt X over (3T, n), ``phase2`` Y =
+    Bt^T W over (n, 3T), each a :class:`~.tiles.MmaPlan`)."""
+
+    design: str
+    single: SinglePlan | None = None
+    phase1: MmaPlan | None = None
+    phase2: MmaPlan | None = None
 
 
-def _slices(q: int, ld: int, dev) -> int:
-    """Row slices of the kernel's second phase: enough blocks for ~4 per SM
-    (each slice adds one (w, ld) float32 partial, summed in a fixed order),
-    and no slice under 128 rows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    col_tiles = -(-ld // _K2_TILE)
-    return max(1, min(-(-4 * sms // col_tiles), -(-q // 128)))
+@functools.lru_cache(maxsize=256)
+def pwr_plan(n: int, T: int, w: int, sms: int = 132, design: str | None = None,
+             occupancy: tuple[int, int] = (2, 3)) -> PwrPlan:
+    """The launch plan for ``n`` camera rows, ``T`` timesteps and width
+    ``w`` on ``sms`` SMs: the single read wherever
+    :func:`~.tiles.single_plan` fits ``n`` (``n <= 30720``), else the two
+    reads, whose phases hold ``occupancy`` blocks per SM; ``design``
+    forces one of them (the card tests and ``chip_smoke.py`` time both on
+    one shape)."""
+    if design not in (None, "single", "two"):
+        raise ValueError(f"pwr_plan: design {design!r}")
+    single = single_plan(n, T, sms) if design != "two" else None
+    if single is not None:
+        return PwrPlan("single", single=single)
+    if design == "single":
+        raise ValueError(f"pwr_plan: the single read does not fit n = {n}")
+    return PwrPlan("two", phase1=mma_plan(3 * T, n, w, sms * occupancy[0]),
+                   phase2=mma_plan(n, 3 * T, w, sms * occupancy[1], trans=True))
 
 
 def _check(Bt, lbd_t, X):
@@ -83,36 +110,85 @@ def _check(Bt, lbd_t, X):
         raise ValueError("pwr_apply: operands on different devices")
 
 
-def pwr_apply(Bt: torch.Tensor, lbd_t: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+def pwr_apply(Bt: torch.Tensor, lbd_t: torch.Tensor, X: torch.Tensor,
+              design: str | None = None) -> torch.Tensor:
     """``Y (n, w) = B Lambda_T B^T X`` in float32 from ``Bt (3T, ld)``
     bfloat16, ``lbd_t (T, 3, 3)`` and ``X (n, w)``, ``1 <= w <= 16``.
 
     CPU tensors take :func:`pwr_apply_plain`.  CUDA tensors launch the
-    kernel of ``vican_torch/csrc/pwr.cu``, or raise; each launch adds one
-    to ``pwr_apply.launches``.
+    kernels of ``vican_torch/csrc/pwr.cu`` in the design :func:`pwr_plan`
+    picks by shape (``design`` forces one), or raise; each call adds one to
+    ``pwr_apply.launches``.
     """
     _check(Bt, lbd_t, X)
+    if design not in (None, "single", "two"):
+        raise ValueError(f"pwr_apply: design {design!r}")
     if Bt.device.type != "cuda":
         return pwr_apply_plain(Bt, lbd_t, X)
     from .. import _kernels
 
     q, ld = Bt.shape
+    T = q // 3
     n, w = X.shape
     dev = Bt.device
-    Xt = torch.zeros((w, ld), dtype=torch.bfloat16, device=dev)
-    Xt[:, :n].copy_(X.T)
-    lam = lbd_t.to(torch.float32).contiguous()
-    Wbuf = torch.empty((q, w), dtype=torch.bfloat16, device=dev)
-    Yt = torch.empty((w, ld), dtype=torch.float32, device=dev)
-    slices = _slices(q, ld, dev)
-    Ypart = (torch.empty((slices, w, ld), dtype=torch.float32, device=dev)
-             if slices > 1 else Yt)
-    _kernels.launch(
-        "pwr", "pwr_apply_bf16",
-        Bt, lam, Xt, Wbuf, Ypart, Yt, q // 3, ld, w, slices,
-    )
+    plan = pwr_plan(n, T, w, _kernels.sm_count(dev), design, phase_occupancy(dev, w))
+    lam = _aligned(lbd_t.to(torch.float32).contiguous())
+    X = _aligned(X.to(torch.float32).contiguous())  # the kernels round it to bf16
+    Y = torch.empty((n, w), dtype=torch.float32, device=dev)
+    if plan.design == "single":
+        sp = plan.single
+        clusters = min(sp.clusters, single_capacity(sp.cs, w, sp.mt, dev))
+        Ypart = torch.empty((clusters, n, w), dtype=torch.float32, device=dev)
+        _kernels.launch("pwr", "pwr_single_bf16", Bt, lam, X, Ypart, Y,
+                        T, n, ld, w, sp.cs, sp.mt, clusters)
+    else:
+        p1, p2 = plan.phase1, plan.phase2
+        Xt = torch.empty((p1.xt_rows, p1.ldx), dtype=torch.bfloat16, device=dev)
+        Zpart = torch.empty((p1.splits, q, w), dtype=torch.float32, device=dev)
+        Wt = torch.empty((p2.xt_rows, p2.ldx), dtype=torch.bfloat16, device=dev)
+        Ypart = (torch.empty((p2.splits, n, w), dtype=torch.float32, device=dev)
+                 if p2.splits > 1 else Y)
+        _kernels.launch("pwr", "pwr_apply_bf16", Bt, lam, X, Xt, Zpart, Wt, Ypart, Y,
+                        T, n, ld, p1.ldx, p2.ldx, w, p1.splits, p1.tps, p2.splits, p2.tps)
     pwr_apply.launches += 1
-    return Yt[:, :n].T
+    return Y
 
 
 pwr_apply.launches = 0
+
+_card: dict = {}  # what the card reports for a kernel and shape, asked once
+
+
+def phase_occupancy(dev, w: int) -> tuple[int, int]:
+    """Blocks per SM of the two-read kernel's phases at width ``w``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), asked once."""
+    from .. import _kernels
+
+    key = ("phases", w <= 8, torch.device(dev).index)
+    if key not in _card:
+        with torch.cuda.device(dev):
+            blocks = tuple(_kernels.call("pwr", "pwr_mma_occupancy", w, t) for t in (0, 1))
+        if min(blocks) <= 0:
+            raise RuntimeError(f"pwr_mma_occupancy({w}): {blocks}")
+        _card[key] = blocks
+    return _card[key]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where it starts on a 16-byte boundary, else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def single_capacity(cs: int, w: int, mt: int, dev) -> int:
+    """Clusters of ``cs`` CTAs the card holds at once for the single-read
+    kernel (``cudaOccupancyMaxActiveClusters``), asked once per shape."""
+    from .. import _kernels
+
+    key = ("clusters", cs, w <= 8, mt, torch.device(dev).index)
+    if key not in _card:
+        with torch.cuda.device(dev):
+            count = _kernels.call("pwr", "pwr_single_clusters", cs, w, mt)
+        if count <= 0:
+            raise RuntimeError(f"pwr_single_clusters({cs}, {w}, {mt}): {count}")
+        _card[key] = count
+    return _card[key]
