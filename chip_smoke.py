@@ -37,7 +37,10 @@ printing any result.
 ``python3 chip_smoke.py --kernels`` stops after the kernel phases;
 ``python3 chip_smoke.py --split`` only times each solver kernel through its
 public wrapper (:func:`split_phase`), so a copy of this file times an
-older checkout's kernels too.
+older checkout's kernels too; ``python3 chip_smoke.py --threshold`` builds
+the threshold kernel, renders the 32 frames its phase needs, runs
+:func:`threshold_phase` (it too runs in an older checkout), then, where
+the checkout has the launch plan, :func:`threshold_sweep`, and stops.
 """
 from __future__ import annotations
 
@@ -88,12 +91,13 @@ PROBE_SHAPE = (30208, 31744, 128)  # M, K, w of mv_kernel_probe.py:73
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense): device-memory bytes/s and bf16 tensor-core FLOP/s; and its int32
-# rate, 64 INT32 lanes per SM (Hopper architecture white paper) x 132 SMs x
-# the 1.98 GHz boost clock.  The card's name and power limit are printed
-# beside every time.
+# and fp32 rates, 64 INT32 and 128 FP32 lanes per SM (Hopper architecture
+# white paper) x 132 SMs x the 1.98 GHz boost clock.  The card's name and
+# power limit are printed beside every time.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
+PEAK_FP32_OPS = 128 * 132 * 1.98e9
 
 # Perception scene: the JAX package's perception-bench recipe
 # (vican_tpu/synthetic.py:273-323: f = 0.55 (W + H), the 24-marker cube of
@@ -124,6 +128,24 @@ def _rate_ms(fn, reps: int = 50) -> float:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int = 50) -> float:
+    """ms per call of ``reps`` warm calls queued behind ~0.1 s of device
+    sleep, so the host has enqueued them all before the first runs: the
+    device time alone, where a call's host work is as long as its kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -606,9 +628,10 @@ def profile_phase(prob) -> dict:
     return {"traced_solve_s": seconds, "log": log, **summary}
 
 
-def perception_scene(dev):
-    """The smoke's perception scene, rendered on ``dev``: ``(cams, traj,
-    markers, frames (384, 720, 1280) uint8, names, frame_cams)``."""
+def perception_scene(dev, timesteps: int = SCENE_FRAMES):
+    """The smoke's perception scene over its first ``timesteps``, rendered
+    on ``dev``: ``(cams, traj, markers, frames (8 timesteps, 720, 1280)
+    uint8, names, frame_cams)``."""
     from vican_torch import render
     from vican_torch.cam import Camera
 
@@ -623,25 +646,32 @@ def perception_scene(dev):
         cams[str(k)] = Camera(id=str(k), intrinsics=K, distortion=dist.copy(),
                               extrinsics=render.look_at(pos, (0.0, 0.0, 1.0)),
                               resolution_x=W, resolution_y=H)
-    traj = render.cube_trajectory(SCENE_FRAMES, seed=4, wander=True)
+    traj = render.cube_trajectory(timesteps, seed=4, wander=True)
     markers = render.make_cube_markers()
     frames, names, frame_cams = render.render_frames(cams, traj, markers,
                                                      marker_size=SCENE_MARKER, device=dev)
     return cams, traj, markers, frames, names, frame_cams
 
 
-def threshold_phase(frames) -> dict:
+def threshold_phase(frames, ptxas: str = "") -> dict:
     """multi_threshold against its plain version (0 differing bytes) on a
-    32-frame batch of the scene and at ragged shapes, timed beside its
-    bound, the plain version and a library yardstick."""
+    32-frame batch of the scene, at ragged shapes and on a view at an odd
+    storage offset, timed beside its bound, the plain version and a library
+    yardstick; ``ptxas``: the kernel's ``-Xptxas -v`` report.  Reads only
+    the wrapper and, where the checkout has it, its launch plan, so it also
+    times an older checkout's kernel (``--threshold``)."""
     import torch
     import torch.nn.functional as F
 
+    from vican_torch.ops import threshold as th
     from vican_torch.ops.threshold import (WIN_SIZES, multi_threshold,
                                            multi_threshold_plain, pack_bits)
 
     C = 10.0
     batch = frames[:32].contiguous()
+    ragged = _ragged(batch)
+    cases = {"scene 32x720x1280": batch, "ragged 2x721x1283": ragged,
+             "B=1": batch[:1].contiguous(), "odd offset 1x721x1283": ragged[1:]}
 
     def library(g8):
         # yardstick only: seven average pools of the replicate-padded frame
@@ -651,20 +681,37 @@ def threshold_phase(frames) -> dict:
               for w in WIN_SIZES]
         return pack_bits(torch.cat(fg, dim=1))
 
+    def plan(g):
+        if not hasattr(th, "threshold_plan"):
+            return None
+        from vican_torch import _kernels
+
+        p = th.threshold_plan(*g.shape, len(WIN_SIZES), th._alignment(g.data_ptr()),
+                              _kernels.sm_count(g.device))
+        return dict(rows=p.rows, grid=list(p.grid), smem=p.smem, aligned=p.aligned)
+
     checks = []
-    for name, g in (("scene 32x720x1280", batch),
-                    ("ragged 2x721x1283", _ragged(batch)),
-                    ("B=1", batch[:1].contiguous())):
+    for name, g in cases.items():
         out = multi_threshold(g, WIN_SIZES, C)
         torch.cuda.synchronize()
         ref = multi_threshold_plain(g, WIN_SIZES, C)
         diff = int((out != ref).sum())
         checks.append({"case": name, "shape": list(g.shape), "differing_bytes": diff,
-                       "max_abs_err": float((out.int() - ref.int()).abs().max())})
+                       "max_abs_err": float((out.int() - ref.int()).abs().max()),
+                       "ms": _rate_ms(lambda: multi_threshold(g, WIN_SIZES, C)),
+                       "plan": plan(g)})
         if diff:
             raise AssertionError(f"multi_threshold {name}: {diff} bytes differ from plain")
+    # the plain version on the card is the spec: as on the CPU
+    small = cases["ragged 2x721x1283"]
+    if not torch.equal(multi_threshold_plain(small, WIN_SIZES, C).cpu(),
+                       multi_threshold_plain(small.cpu(), WIN_SIZES, C)):
+        raise AssertionError("multi_threshold_plain: the card and the CPU differ")
     ms = _rate_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
     launch_ms = _median_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
+    # the device time alone: at ~0.17 ms a call the wrapper's host work
+    # (~0.1-0.25 ms on a loaded host) can set the back-to-back rate
+    kernel_ms = _device_ms(lambda: multi_threshold(batch, WIN_SIZES, C))
     plain_ms = _rate_ms(lambda: multi_threshold_plain(batch, WIN_SIZES, C))
     library_ms = _rate_ms(lambda: library(batch))
     B, H, W = batch.shape
@@ -676,16 +723,69 @@ def threshold_phase(frames) -> dict:
     R = max(WIN_SIZES) // 2
     ops = B * (H + 2 * R) * (W + 2 * R) * 2 + B * H * W * (1 + 5 * len(WIN_SIZES))
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_OPS
+    # the same operations issued on the FP32 and INT32 pipes together, as
+    # a design with exact float arithmetic may: a second, lower bound
+    t_pipes = ops / (PEAK_FP32_OPS + PEAK_INT32_OPS)
     row = dict(shape=list(batch.shape), checks=checks, ms=ms, launch_ms=launch_ms,
-               plain_ms=plain_ms,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms, bytes=nbytes, ops=ops,
                bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
+               pipes_bound_ms=max(t_bytes, t_pipes) * 1e3,
+               pipes_bound_by="bytes" if t_bytes >= t_pipes else "operations on fp32+int32",
                max_abs_err=max(c["max_abs_err"] for c in checks),
-               differing_bytes=sum(c["differing_bytes"] for c in checks))
+               differing_bytes=sum(c["differing_bytes"] for c in checks),
+               design=("column bands, 32-row steps, sliding boxes" if hasattr(th, "threshold_plan")
+                       else "16x128 tiles, shared-memory integral (earlier design)"),
+               smem_dynamic=getattr(th, "SMEM", None), **_threshold_resources(ptxas))
     emit("threshold_kernel", name="multi_threshold", **row)
     return row
+
+
+def _threshold_resources(ptxas: str) -> dict:
+    """Registers, static shared memory and local memory of the threshold
+    kernel's variants as the runtime loaded them, where the checkout's
+    library reports them (``threshold_attribute``); the spilling variants
+    from this run's ``-Xptxas -v`` report, ``None`` where this run built
+    nothing (the library was cached)."""
+    from vican_torch import _kernels
+
+    ptx = _ptxas_summary(ptxas) if ptxas else None
+    res = {"spilling": ptx and ptx["spilling"], "ptxas_kernels": ptx and ptx["kernels"]}
+    if "threshold_attribute" in _kernels.SOURCES["threshold"]:
+        names = ("bytes/float C", "16-byte/float C", "bytes/integral C", "16-byte/integral C")
+        attrs = {names[v]: dict(zip(("registers", "smem_static", "local_bytes"),
+                                    (_kernels.call("threshold", "threshold_attribute", v, w)
+                                     for w in range(3)))) for v in range(4)}
+        if any(x < 0 for a in attrs.values() for x in a.values()):
+            raise AssertionError(f"threshold_attribute failed: {attrs}")
+        res.update(registers=max(a["registers"] for a in attrs.values()),
+                   smem_static=max(a["smem_static"] for a in attrs.values()), variants=attrs)
+    else:
+        res.update(registers=ptx and ptx["max_registers"], smem_static=ptx and ptx["max_smem"])
+    return res
+
+
+def threshold_sweep(batch) -> None:
+    """The threshold kernel on ``batch`` through its wrapper, at every cut
+    of its rows into segments (``rows`` per CTA) and with the first 1..7
+    default windows at the plan's cut: the times its fixed cut
+    (``threshold.SEGMENT_ROWS``) and the per-window cost are read from."""
+    from vican_torch import _kernels
+    from vican_torch.ops import threshold as th
+
+    B, H, W = batch.shape
+    plan = th.threshold_plan(B, H, W, len(th.WIN_SIZES), th._alignment(batch.data_ptr()),
+                             _kernels.sm_count(batch.device))
+    steps = -(-H // th.STEP_ROWS)
+    cuts = sorted({-(-steps // segs) * th.STEP_ROWS for segs in range(1, steps + 1)})
+    rows_ms = {rows: _device_ms(lambda: th.multi_threshold(batch, th.WIN_SIZES, 10.0, rows))
+               for rows in cuts}
+    windows_ms = {n: _device_ms(lambda: th.multi_threshold(batch, th.WIN_SIZES[:n], 10.0))
+                  for n in range(1, 8)}
+    emit("threshold_sweep", shape=list(batch.shape), planned_rows=plan.rows, rows_ms=rows_ms,
+         windows_ms=windows_ms)
 
 
 def _ragged(batch):
@@ -697,10 +797,10 @@ def _ragged(batch):
     return F.pad(g, (0, 3, 0, 1), mode="replicate")[:, 0].to(batch.dtype).contiguous()
 
 
-def perception_phases(dev) -> int:
+def perception_phases(dev, ptxas: str = "") -> dict:
     """Drive perception in device mode over the scene on the card, check it
     against the CPU, against ground truth and through calibration; returns
-    the threshold kernel's launches in the card run."""
+    the threshold phase's row with the kernel's launches in the card run."""
     import torch
 
     from vican_torch import bipgo
@@ -715,7 +815,7 @@ def perception_phases(dev) -> int:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     host = frames.cpu().numpy()  # frames arrive from the host, as decoded files would
-    row = threshold_phase(frames)
+    row = threshold_phase(frames, ptxas)
     del frames
     torch.cuda.empty_cache()
 
@@ -821,8 +921,19 @@ def main() -> None:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    logs = _kernels.build()
+    logs = _kernels.build(["threshold"] if "--threshold" in sys.argv else None)
     build_s = time.perf_counter() - t0
+    ptxas = logs.get("threshold", {}).get("ptxas", "")
+    if "--threshold" in sys.argv:
+        emit("build", seconds=build_s,
+             kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
+        frames = perception_scene(dev, 32 // 8)[3]
+        threshold_phase(frames, ptxas)
+        from vican_torch.ops import threshold as th
+
+        if hasattr(th, "threshold_plan"):
+            threshold_sweep(frames[:32].contiguous())
+        return
     t0 = time.perf_counter()
     if get_fastpack() is None:
         raise AssertionError(f"the C packer did not build: {native_errors}")
@@ -899,7 +1010,7 @@ def main() -> None:
 
     d = config_d_phase(dev)
 
-    th = perception_phases(dev)
+    th = perception_phases(dev, ptxas)
 
     w10 = rows["B", 10]
     kernels = [{
@@ -915,9 +1026,14 @@ def main() -> None:
         "name": "multi_threshold", "route": "cuda", "source": "vican_torch/csrc/threshold.cu",
         "replaces": "vican_tpu/ops/pallas/threshold.py:33",
         "launches": th["launches"], "max_abs_err": th["max_abs_err"],
-        "differing_bytes": th["differing_bytes"], "ms": th["ms"], "plain_ms": th["plain_ms"],
+        "differing_bytes": th["differing_bytes"], "ms": th["ms"], "kernel_ms": th["kernel_ms"],
+        "plain_ms": th["plain_ms"],
         "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],
-        "library_ms": th["library_ms"], "shape": th["shape"],
+        "pipes_bound_ms": th["pipes_bound_ms"], "pipes_bound_by": th["pipes_bound_by"],
+        "library_ms": th["library_ms"], "shape": th["shape"], "design": th["design"],
+        "registers": th["registers"], "smem_static": th["smem_static"],
+        "smem_dynamic": th["smem_dynamic"], "spilling": th["spilling"],
+        "cases_ms": {c["case"]: c["ms"] for c in th["checks"]},
     }, {
         "name": "thin_mv", "route": "cuda", "source": "vican_torch/csrc/mv.cu",
         "replaces": "benchmarks/mv_kernel_probe.py:36",

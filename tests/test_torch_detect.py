@@ -19,6 +19,7 @@ from vican_torch import perception as TPc
 from vican_torch.ops import detect as TD
 from vican_torch.ops import dictionary as TDict
 from vican_torch.ops.threshold import multi_threshold
+from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 
 ARUCO = "DICT_4X4_1000"
 

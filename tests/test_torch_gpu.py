@@ -147,24 +147,76 @@ def test_streaming_regime_on_the_card_matches_cpu(cuda):
     assert d < 0.15, d
 
 
+_DEFAULT = (3, 9, 13, 19, 23, 29, 33)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,W,C", [
-    (2, 96, 256, 10.0), (1, 73, 130, 10.0), (3, 1, 40, 10.0),
-    (1, 721, 1283, 10.0), (4, 33, 517, 7.5), (2, 200, 331, -2.25),
+@pytest.mark.parametrize("B,H,W,C,wins,view", [
+    (2, 96, 256, 10.0, _DEFAULT, False), (1, 73, 130, 10.0, _DEFAULT, False),
+    (3, 1, 40, 10.0, _DEFAULT, False), (1, 721, 1283, 10.0, _DEFAULT, False),
+    (4, 33, 517, 7.5, _DEFAULT, False), (2, 200, 331, -2.25, _DEFAULT, False),
+    # H and W below the 33-pixel window; a single pixel
+    (2, 20, 17, 10.0, _DEFAULT, False), (1, 1, 1, 10.0, _DEFAULT, False),
+    (3, 31, 32, 3.0, _DEFAULT, False),
+    # W % 16 != 0 on the 16-byte path's neighbours, and W a multiple of 16
+    (2, 64, 1288, 10.0, _DEFAULT, False), (2, 130, 1296, 10.0, _DEFAULT, False),
+    # gray[1:] of a 2 x 721 x 1283 batch: an odd storage offset
+    (2, 721, 1283, 10.0, _DEFAULT, True),
+    # one window of each extreme, and eight windows
+    (2, 70, 300, 10.0, (1,), False), (2, 70, 300, 10.0, (33,), False),
+    (2, 70, 304, 10.0, (3, 33, 5, 7, 9, 11, 13, 15), False),
+    (1, 50, 77, 7.5, (1, 31, 3, 33, 17, 5, 25, 9), False),
+    # a frame as wide as the kernel's column band, and two bands
+    (1, 64, 256, 10.0, _DEFAULT, False), (5, 97, 512, 10.0, _DEFAULT, False),
+    # the scene's frame size at B = 1 and at a batch that cuts rows into segments
+    (1, 720, 1280, 10.0, _DEFAULT, False), (6, 720, 1280, 10.0, _DEFAULT, False),
 ])
-def test_threshold_kernel_matches_plain(cuda, B, H, W, C):
+def test_threshold_kernel_matches_plain(cuda, B, H, W, C, wins, view):
     rng = np.random.default_rng(H + W)
     # a smooth ramp with noise, so that masks are neither empty nor full
     ramp = np.linspace(0, 200, W)[None, None, :] + np.linspace(0, 40, H)[None, :, None]
     img = np.clip(ramp + rng.normal(scale=30, size=(B, H, W)), 0, 255).astype(np.uint8)
     gray = torch.from_numpy(img).to(cuda)
+    if view:
+        gray = gray[1:]
+        assert gray.data_ptr() % 2 == 1 and gray.is_contiguous()
     before = multi_threshold.launches
-    out = multi_threshold(gray, thresh_const=C)
+    out = multi_threshold(gray, win_sizes=wins, thresh_const=C)
     torch.cuda.synchronize()
     assert multi_threshold.launches == before + 1
-    ref = multi_threshold_plain(gray, thresh_const=C)
-    assert out.shape == ref.shape == (B, 7, H, -(-W // 8))
+    ref = multi_threshold_plain(gray, win_sizes=wins, thresh_const=C)
+    assert out.shape == ref.shape == (gray.shape[0], len(wins), H, -(-W // 8))
     assert int((out != ref).sum()) == 0
+    # the plain version computes the same on the card and on the CPU
+    assert torch.equal(ref.cpu(), multi_threshold_plain(gray.cpu(), win_sizes=wins,
+                                                        thresh_const=C))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,rows", [(2, 721, 1283, 32), (2, 721, 1283, 256),
+                                        (2, 721, 1283, 736), (3, 720, 1280, 64),
+                                        (3, 720, 1280, 192)])
+def test_threshold_kernel_every_row_cut(cuda, B, H, W, rows):
+    """Any rows per CTA (the plan's override) gives the same masks."""
+    rng = np.random.default_rng(rows)
+    gray = torch.from_numpy(rng.integers(0, 256, (B, H, W)).astype(np.uint8)).to(cuda)
+    out = multi_threshold(gray, rows=rows)
+    assert int((out != multi_threshold_plain(gray)).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_threshold_plan_matches_the_kernel(cuda):
+    """The plan's constants are the kernel's (threshold.cu:threshold_constant),
+    and the loaded variants report their resources (threshold_attribute)."""
+    from vican_torch import _kernels
+    from vican_torch.ops import threshold as th
+
+    got = [_kernels.call("threshold", "threshold_constant", i) for i in range(4)]
+    assert got == [th.BAND, th.STEP_ROWS, th.THREADS, th.SMEM]
+    for v in range(4):
+        regs, smem_static, local = (_kernels.call("threshold", "threshold_attribute", v, w)
+                                    for w in range(3))
+        assert 0 < regs <= 128 and smem_static + th.SMEM <= th.SMEM_LIMIT and local >= 0
 
 
 @pytest.mark.gpu

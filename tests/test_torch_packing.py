@@ -12,6 +12,7 @@ from vican_tpu.ops.shoelace import polygon_area as j_area
 from vican_tpu.solver import specs as jspecs
 from vican_tpu.solver.packing import pack_problem as jpack
 from vican_tpu.synthetic import make_problem
+from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 
 FIELDS = ("cam_ids", "time_ids", "marker_ids", "edata", "eidx", "R_con", "t_con",
           "root_idx", "k_r_scale", "has_quats", "R_e_raw")

@@ -16,6 +16,7 @@ from vican_tpu.render import look_at, make_cube_markers, render_dataset, render_
 from vican_torch import cam as TC
 from vican_torch import perception as TP
 from vican_torch import render as TR
+from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 
 MARKER_SIZE = 0.138
 DIST = np.array([-0.25, 0.08, 1.5e-3, -1.2e-3, -0.012, -0.02, 0.004, -0.001,

@@ -17,6 +17,7 @@ from vican_torch.solver.mv import thin_mv
 from vican_torch.solver.pwr import pwr_apply
 from vican_torch.solver.scale import so3_sync_large as tlarge
 from vican_torch.solver.scale import sort_edges_by_time as tsort
+from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 
 
 def _chunked(dtype, chunk_t):

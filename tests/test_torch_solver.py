@@ -22,6 +22,7 @@ from vican_torch import bipgo as tbipgo
 from vican_torch.geometry import SE3, distance_SO3
 from vican_torch.solver import core as tcore
 from vican_torch.solver.packing import pack_problem as tpack, packed_from_arrays
+from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 
 _spec = importlib.util.spec_from_file_location(
     "gen_golden_se3sync",
@@ -122,7 +123,14 @@ def test_so3_sync_and_cg_match_jax(prob, dtype, rot_bar, ev_bar, t_bar):
 
 def test_lsqr_matches_jax(prob):
     """The "direct" translation solver (LSQR) against JAX's on the same
-    right-hand side, in float64: measured 1e-13 m."""
+    right-hand side, in float64.
+
+    Both LSQRs stop at ``atol = btol = 1e-8`` (vican_torch/solver/core.py
+    and vican_tpu/solver/core.py), so each solution is good to about 1e-8
+    of its scale and two of them can differ by as much: the bar is 1e-8 of
+    max |x|.  Measured on this fixture (max |x| = 6.79 m): 1.05e-10 m
+    (1.5e-11 of max |x|) when the JAX package packed with its C packer,
+    1.0075e-9 m (1.5e-10) with its pure-Python packer."""
     jp, tp = _packed_pair(prob, np.float64)
     arrs = tbipgo._device_arrays(tp, torch.float64, torch.device("cpu"))
     KR = tcore.fold_constraints(arrs["R_e"], arrs["k_r"], arrs["marker_idx"], arrs["R_con"],
@@ -138,7 +146,8 @@ def test_lsqr_matches_jax(prob):
         jnp.asarray(t_tilde), jnp.asarray(jp.k_t), jnp.asarray(jp.cam_idx),
         jnp.asarray(jp.time_idx), C=jp.num_cams, T=jp.num_times)
     assert float(r_t) < 1e-4 and float(r_j) < 1e-4
-    assert np.abs(x_t.numpy() - np.asarray(x_j)).max() < 1e-9
+    d = np.abs(x_t.numpy() - np.asarray(x_j)).max()
+    assert d < 1e-8 * np.abs(np.asarray(x_j)).max(), d
 
 
 def test_cg_scatter_matvec_matches_dense_adjacency(prob, monkeypatch):

@@ -37,7 +37,8 @@ SOURCES = {
     "pwr": {"pwr_apply_bf16": [*[_P] * 8, *[_I] * 10, _P],
             "pwr_single_bf16": [*[_P] * 5, *[_I] * 7, _P],
             "pwr_single_clusters": [_I, _I, _I], "pwr_mma_occupancy": [_I, _I]},
-    "threshold": {"threshold_pack_u8": [_P, _P, *[_I] * 14, _F, _P]},
+    "threshold": {"threshold_pack_u8": [_P, _P, *[_I] * 14, _F, *[_I] * 3, _P],
+                  "threshold_constant": [_I], "threshold_attribute": [_I, _I]},
     "mv": {"thin_mv_bf16": [*[_P] * 5, *[_I] * 9, _P], "thin_mv_occupancy": [_I]},
 }
 
