@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``vican_torch/csrc`` (one ``nvcc``
-per source, all at once) and the C edge packer, holds each kernel against
+per source, all at once) and the C modules, holds each kernel against
 its plain PyTorch version at the main paths' shapes (``pwr_apply`` at cells
 B's and C's in both its designs, one read and two; ``thin_mv`` also at the
 shape of the JAX package's matvec probe) and times both with each kernel's
@@ -21,12 +21,15 @@ device split, then drives two paths:
   passes the 6 GB budget, so the large-graph route streams and filters on
   the ``thin_mv`` kernel, checked against the materialized regime on the
   same packed problem; every problem packed by the C packer;
-- perception in device mode, ``vican_torch.perception.estimate_pose_gray``,
-  on 384 frames at 1280x720 (8 cameras around a 24-marker cube, 48
-  timesteps, rendered on the card by ``vican_torch.render``), thresholded by
-  the ``multi_threshold`` kernel; the same frames on the CPU must give the
-  same detections, the edges must be accurate against ground truth, and
-  ``bipartite_se3sync`` on them must recover all 8 cameras.
+- perception in its default mode, ``vican_torch.perception.
+  estimate_pose_gray``, on 384 frames at 1280x720 (8 cameras around a
+  24-marker cube, 48 timesteps, rendered on the card by
+  ``vican_torch.render``), thresholded by the ``multi_threshold`` kernel and
+  labeled by the C labeler; the same frames on the CPU must give the same
+  detections, the edges must be accurate against ground truth, and
+  ``bipartite_se3sync`` on them must recover all 8 cameras; then the
+  ``host`` mode (host threshold, no kernel launch) over the same frames and
+  ``roi`` and ``auto`` over 64 of them must give the same edges.
 
 One JSON line per phase; any failed check raises, so the exit code is not
 0.  The last lines are the card's ``nvidia-smi`` name and power limit, the
@@ -34,6 +37,10 @@ kernels' JSON line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, or without the rest of the repository beside it, it fails before
 printing any result.
 
+``python3 chip_smoke.py --perception`` builds the threshold kernel and the
+C modules, runs the perception phases and, where the checkout has the
+host modes, :func:`perception_modes`, and stops (it also runs in an older
+checkout, to time its perception in the same call);
 ``python3 chip_smoke.py --kernels`` stops after the kernel phases;
 ``python3 chip_smoke.py --split`` only times each solver kernel through its
 public wrapper (:func:`split_phase`), so a copy of this file times an
@@ -797,18 +804,42 @@ def _ragged(batch):
     return F.pad(g, (0, 3, 0, 1), mode="replicate")[:, 0].to(batch.dtype).contiguous()
 
 
-def perception_phases(dev, ptxas: str = "") -> dict:
-    """Drive perception in device mode over the scene on the card, check it
-    against the CPU, against ground truth and through calibration; returns
-    the threshold phase's row with the kernel's launches in the card run."""
+def _perception_run(frames, names, frame_cams, **kw):
+    """One timed ``estimate_pose_gray`` run on the card: ``(edges, row)``,
+    the row with images/s, the summed phase split (:data:`PHASES` of the
+    checkout), the threshold kernel's launches and the labeler (a checkout
+    without ``perception.last_labeler`` has only scipy's)."""
     import torch
 
-    from vican_torch import bipgo
-    from vican_torch.geometry import distance_SO3, optimize_gauge_SE3
-    from vican_torch.ops.shoelace import polygon_area
+    from vican_torch import perception
     from vican_torch.ops.threshold import multi_threshold
     from vican_torch.perception import PHASES, estimate_pose_gray
     from vican_torch.utils import PhaseTimer
+
+    timer = PhaseTimer(verbose=False, device=torch.device("cuda"))
+    multi_threshold.launches = 0
+    t0 = time.perf_counter()
+    edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **PERCEPTION_KW, **kw)
+    seconds = time.perf_counter() - t0
+    launches = multi_threshold.launches
+    split = {p: sum(e["seconds"] for e in timer.events if e["name"] == p) for p in PHASES}
+    return edges, dict(frames=len(names), seconds=seconds, images_per_s=len(names) / seconds,
+                       phase_s=split, detections=len(edges), kernel_launches=launches,
+                       batches=-(-len(names) // PERCEPTION_KW["batch_size"]),
+                       labeler=getattr(perception, "last_labeler", "scipy"))
+
+
+def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
+    """Drive perception in the default mode over the scene on the card,
+    check it against the CPU, against ground truth and through calibration.
+    Returns the threshold phase's row with the kernel's launches in the
+    card run, and ``(frames, names, frame_cams, edges)`` of that run."""
+    import torch
+
+    from vican_torch import bipgo, perception
+    from vican_torch.geometry import distance_SO3, optimize_gauge_SE3
+    from vican_torch.ops.shoelace import polygon_area
+    from vican_torch.perception import estimate_pose_gray
 
     t0 = time.perf_counter()
     cams, traj, markers, frames, names, frame_cams = perception_scene(dev)
@@ -819,19 +850,14 @@ def perception_phases(dev, ptxas: str = "") -> dict:
     del frames
     torch.cuda.empty_cache()
 
-    timer = PhaseTimer(verbose=False, device=dev)
-    multi_threshold.launches = 0
-    t0 = time.perf_counter()
-    edges = estimate_pose_gray(host, names, frame_cams, timer=timer, **PERCEPTION_KW)
-    seconds = time.perf_counter() - t0
-    launches = multi_threshold.launches
-    split = {p: sum(e["seconds"] for e in timer.events if e["name"] == p) for p in PHASES}
-    n_batches = -(-len(names) // PERCEPTION_KW["batch_size"])
-    emit("perception", frames=len(names), resolution=list(SCENE_RES), render_s=render_s,
-         seconds=seconds, images_per_s=len(names) / seconds, phase_s=split,
-         detections=len(edges), kernel_launches=launches, batches=n_batches)
+    edges, run = _perception_run(host, names, frame_cams)
+    launches, n_batches = run["kernel_launches"], run["batches"]
+    emit("perception", resolution=list(SCENE_RES), render_s=render_s,
+         upload_mb_per_batch=PERCEPTION_KW["batch_size"] * host[0].nbytes / 1e6, **run)
     if launches != n_batches:
         raise AssertionError(f"perception: {launches} threshold launches for {n_batches} batches")
+    if hasattr(perception, "last_labeler") and run["labeler"] != "c":
+        raise AssertionError(f"perception: labeled by {run['labeler']}, not the C labeler")
     if len(edges) < 10 * SCENE_FRAMES:
         raise AssertionError(f"perception: only {len(edges)} detections")
 
@@ -893,7 +919,74 @@ def perception_phases(dev, ptxas: str = "") -> dict:
         raise AssertionError(f"calibration: {len(found)} cameras, mean errors "
                              f"{np.mean(r_err)} deg, {np.mean(t_err)} m")
     row["launches"] = launches
-    return row
+    return row, (host, names, frame_cams, edges)
+
+
+def _edge_diff(ref: dict, out: dict) -> dict:
+    """How far two edge dicts are apart: same keys (in order), the largest
+    corner and pose-entry differences over the common keys, and whether
+    they are identical."""
+    common = [k for k in ref if k in out]
+    d_corner = max((float(np.abs(out[k]["corners"] - ref[k]["corners"]).max())
+                    for k in common), default=0.0)
+    d_pose = max((float(np.abs(out[k]["pose"].pose() - ref[k]["pose"].pose()).max())
+                  for k in common), default=0.0)
+    same_keys = list(ref) == list(out)
+    return dict(same_keys=same_keys, keys_only_one=len(set(ref) ^ set(out)),
+                max_corner_diff_px=d_corner, max_pose_entry_diff=d_pose,
+                identical=same_keys and d_corner == 0.0 and d_pose == 0.0)
+
+
+def perception_modes(device_run) -> None:
+    """The ``host`` mode over the scene's frames (the host threshold, no
+    launch of the kernel), then the default mode again, so that the two
+    modes run in turns (default, host, default); then ``roi`` and ``auto``
+    on the first 64 frames.  Every mode must give the default run's edges:
+    identical where two default runs are, else the same keys and corners
+    within the card-vs-CPU bar of 1e-3 px."""
+    frames, names, frame_cams, device_edges = device_run
+    host_edges, host = _perception_run(frames, names, frame_cams, pipeline_mode="host")
+    again_edges, again = _perception_run(frames, names, frame_cams, pipeline_mode="device")
+    run_to_run = _edge_diff(device_edges, again_edges)
+    n = 64
+    first = set(names[:n])
+    device_first = {k: v for k, v in device_edges.items() if v["im_filename"] in first}
+    host_first = {k: v for k, v in host_edges.items() if v["im_filename"] in first}
+    roi_edges, roi = _perception_run(frames[:n], names[:n], frame_cams[:n], pipeline_mode="roi")
+    auto_edges, auto = _perception_run(frames[:n], names[:n], frame_cams[:n],
+                                       pipeline_mode="auto")
+    diffs = {"host vs device": _edge_diff(device_edges, host_edges),
+             "roi vs host": _edge_diff(host_first, roi_edges),
+             "auto vs device": _edge_diff(device_first, auto_edges)}
+    emit("perception_modes", host=host, device_again=again, roi=roi, auto=auto,
+         device_run_to_run=run_to_run, diffs=diffs)
+    faults = [f"{m}: {r['kernel_launches']} threshold launches"
+              for m, r, want in (("host", host, 0), ("roi", roi, 0),
+                                 ("auto", auto, auto["batches"]))
+              if r["kernel_launches"] != want]
+    faults += [f"{m}: labeled by {r['labeler']}" for m, r in (("host", host), ("roi", roi))
+               if r["labeler"] != "c"]
+    for name, d in diffs.items():
+        if run_to_run["identical"] and not d["identical"]:
+            faults.append(f"{name}: {d} (two default runs are identical)")
+        elif not (d["same_keys"] and d["max_corner_diff_px"] < 1e-3):
+            faults.append(f"{name}: {d}")
+    if faults:
+        raise AssertionError(f"perception_modes: {faults}")
+
+
+def _build_native(only_present: bool = False) -> list:
+    """Build the port's C modules (the edge packer, the labeler, the host
+    threshold) and raise naming any that did not build; ``only_present``
+    skips those the checkout has no getter for (an older checkout)."""
+    from vican_torch import _native
+
+    names = [n for n in ("fastpack", "fastccl", "fastthresh")
+             if not only_present or hasattr(_native, f"get_{n}")]
+    missing = [n for n in names if getattr(_native, f"get_{n}")() is None]
+    if missing:
+        raise AssertionError(f"the C modules {missing} did not build: {_native.build_errors}")
+    return names
 
 
 def main() -> None:
@@ -903,8 +996,6 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, REPO)
     from vican_torch import _kernels, bipgo
-    from vican_torch._native import build_errors as native_errors
-    from vican_torch._native import get_fastpack
     from vican_torch.geometry import distance_SO3
     from vican_torch.solver.pwr import pwr_apply
     from vican_torch.synthetic import make_problem_arrays
@@ -920,8 +1011,9 @@ def main() -> None:
     emit("device", kind=name, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    partial = "--threshold" in sys.argv or "--perception" in sys.argv
     t0 = time.perf_counter()
-    logs = _kernels.build(["threshold"] if "--threshold" in sys.argv else None)
+    logs = _kernels.build(["threshold"] if partial else None)
     build_s = time.perf_counter() - t0
     ptxas = logs.get("threshold", {}).get("ptxas", "")
     if "--threshold" in sys.argv:
@@ -935,10 +1027,16 @@ def main() -> None:
             threshold_sweep(frames[:32].contiguous())
         return
     t0 = time.perf_counter()
-    if get_fastpack() is None:
-        raise AssertionError(f"the C packer did not build: {native_errors}")
-    emit("build", seconds=build_s, packer_seconds=time.perf_counter() - t0,
+    native = _build_native(only_present="--perception" in sys.argv)
+    emit("build", seconds=build_s, native_seconds=time.perf_counter() - t0, native=native,
          kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
+    if "--perception" in sys.argv:
+        th, device_run = perception_phases(dev, ptxas)
+        from vican_torch.perception import PHASES
+
+        if "host threshold" in PHASES:
+            perception_modes(device_run)
+        return
 
     if "--split" in sys.argv:
         split_phase(dev)
@@ -1010,7 +1108,9 @@ def main() -> None:
 
     d = config_d_phase(dev)
 
-    th = perception_phases(dev, ptxas)
+    th, device_run = perception_phases(dev, ptxas)
+    perception_modes(device_run)
+    del device_run
 
     w10 = rows["B", 10]
     kernels = [{

@@ -243,3 +243,36 @@ def test_perception_on_the_card_matches_cpu(cuda):
     assert set(gpu) == set(cpu)
     for k in cpu:
         np.testing.assert_allclose(gpu[k]["corners"], cpu[k]["corners"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [0, 3], ids=["W=640", "W=643"])
+def test_perception_modes_on_the_card_agree(cuda, pad):
+    """The host mode (host threshold, the kernel not launched) gives the
+    device mode's detections on the card, at the frames' width and at a
+    ragged one (W % 8 != 0: the kernel's bits past W are zero)."""
+    import torch.nn.functional as F
+
+    from vican_torch import perception
+
+    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
+    cams = {str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
+                           extrinsics=render.look_at(pos, (0, 0, 1.0)),
+                           resolution_x=640, resolution_y=360)
+            for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
+    frames, names, frame_cams = render.render_frames(
+        cams, render.cube_trajectory(2, seed=5), render.make_cube_markers(),
+        marker_size=0.138, device=cuda)
+    frames = F.pad(frames.float(), (0, pad), mode="replicate").to(torch.uint8)
+    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
+              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+              batch_size=4, verbose=False)
+    before = multi_threshold.launches
+    dev = estimate_pose_gray(frames.contiguous(), names, frame_cams, pipeline_mode="device", **kw)
+    assert multi_threshold.launches == before + 2 and perception.last_labeler == "c"
+    host = estimate_pose_gray(frames.cpu().numpy(), names, frame_cams, pipeline_mode="host",
+                              **kw)
+    assert multi_threshold.launches == before + 2
+    assert len(dev) > 5 and list(host) == list(dev)
+    for k in dev:
+        np.testing.assert_allclose(host[k]["corners"], dev[k]["corners"], rtol=0, atol=1e-3)

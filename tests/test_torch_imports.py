@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, its solver, its perception and the
-chip smoke test pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
+"""The port stands alone: importing it, its solver, its perception, its
+dataset loaders, building its C modules and importing the chip smoke test
+pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
 since this test process has both loaded)."""
 import os
 import subprocess
@@ -16,7 +17,10 @@ def test_port_imports_neither_jax_nor_vican_tpu():
         "import vican_torch.solver.mv, vican_torch.solver.specs, vican_torch._native\n"
         "import vican_torch.solver.packing, vican_torch.solver.tiles\n"
         "assert vican_torch._native.get_fastpack() is not None\n"
+        "assert vican_torch._native.get_fastccl() is not None\n"
+        "assert vican_torch._native.get_fastthresh() is not None\n"
         "import vican_torch.perception, vican_torch.cam, vican_torch.render\n"
+        "import vican_torch.dataset\n"
         "import vican_torch.ops.detect, vican_torch.ops.pnp, vican_torch.ops.threshold\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -1,6 +1,7 @@
-"""The perception slice as a whole: the port's ``estimate_pose_mp`` (device
-mode, on the CPU) against the JAX package's device mode on the same
-rendered files, and the port's renderer against the JAX package's."""
+"""The perception slice as a whole: the port's ``estimate_pose_mp`` (every
+pipeline mode, on the CPU) against the JAX package's modes on the same
+rendered files; the port's renderer against the JAX package's; the port's
+``Dataset`` against the JAX package's on the rendered directory."""
 import os
 
 import numpy as np
@@ -13,9 +14,12 @@ from vican_tpu.cam import Camera, estimate_pose_mp
 from vican_tpu.dataset import Dataset
 from vican_tpu.geometry import SE3, distance_SO3, rodrigues
 from vican_tpu.render import look_at, make_cube_markers, render_dataset, render_image
+from vican_torch import _native as tnative
 from vican_torch import cam as TC
+from vican_torch import dataset as TDS
 from vican_torch import perception as TP
 from vican_torch import render as TR
+from vican_torch.utils import PhaseTimer
 from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 
 MARKER_SIZE = 0.138
@@ -143,10 +147,12 @@ def test_estimate_pose_worker_is_one_frame_of_the_batch(rendered):
 
 def test_unported_modes_and_missing_card_raise(rendered, monkeypatch):
     files, cams = rendered.im_data["filename"][:1], _port_cams(rendered.im_data["cam"][:1])
-    for mode in ("roi", "host", "pure"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode=mode,
-                                device="cpu", **KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode="pure",
+                            device="cpu", **KW)
+    with pytest.raises(ValueError, match="unknown perception pipeline mode"):
+        TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode="tiles",
+                            device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TC.estimate_pose_mp(files, cams, marker_ids=None, mesh=object(), device="cpu", **KW)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -155,3 +161,97 @@ def test_unported_modes_and_missing_card_raise(rendered, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TR.render_frames({"0": cams[0]}, _traj(1, 3), make_cube_markers(),
                          marker_size=MARKER_SIZE)
+
+
+MODES = ("device", "host", "roi", "auto")
+
+
+@pytest.fixture(scope="module")
+def port_modes(rendered):
+    """The port's edges from the rendered files in every pipeline mode."""
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    return {m: TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode=m,
+                                   device="cpu", **KW) for m in MODES}
+
+
+def _assert_identical_edges(ref, out):
+    assert list(out) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(out[k]["corners"], ref[k]["corners"])
+        np.testing.assert_array_equal(out[k]["pose"].pose(), ref[k]["pose"].pose())
+        assert out[k]["reprojected_err"] == ref[k]["reprojected_err"]
+        assert out[k]["im_filename"] == ref[k]["im_filename"]
+
+
+@pytest.mark.parametrize("mode", MODES[1:])
+def test_port_modes_give_identical_edges(port_modes, mode):
+    """host, roi and auto give the device mode's edges exactly: the host
+    threshold's masks are the kernel's, byte for byte, at the default C."""
+    assert len(port_modes["device"]) > 10
+    _assert_identical_edges(port_modes["device"], port_modes[mode])
+
+
+@pytest.mark.parametrize("mode", ["host", "roi"])
+def test_port_host_modes_match_jax(rendered, port_modes, mode):
+    """The port's host and roi modes against the JAX package's (its roi
+    mode uploads tiles, its host mode the frame) on the same files."""
+    files, cams = rendered.im_data["filename"], rendered.im_data["cam"]
+    ref = estimate_pose_mp(files, cams, pipeline_mode=mode, marker_ids=None, **KW)
+    _assert_same_edges(ref, port_modes[mode])
+
+
+def _phases(rendered, mode, corner_refine):
+    files, cams = rendered.im_data["filename"][:3], _port_cams(rendered.im_data["cam"][:3])
+    timer = PhaseTimer(verbose=False, device="cpu")
+    kw = dict(KW, corner_refine=corner_refine)
+    edges = TP.estimate_pose_batched(files, cams, pipeline_mode=mode, device="cpu",
+                                     timer=timer, **kw)
+    return edges, {e["name"] for e in timer.events}
+
+
+def test_roi_with_subpix_runs_the_device_program(rendered):
+    """cornerSubPix samples without bound, so roi hands it to the device
+    program (vican_tpu/perception.py:1285-1290); other refiners run the host
+    program."""
+    edges, names = _phases(rendered, "roi", "CORNER_REFINE_SUBPIX")
+    assert "threshold kernel" in names and "host threshold" not in names
+    device, _ = _phases(rendered, "device", "CORNER_REFINE_SUBPIX")
+    assert edges and list(edges) == list(device)
+    for k in device:
+        np.testing.assert_array_equal(edges[k]["corners"], device[k]["corners"])
+    _, names = _phases(rendered, "roi", "CORNER_REFINE_APRILTAG")
+    assert "host threshold" in names and "threshold kernel" not in names
+    assert set(TP.PHASES) >= names
+
+
+def test_scipy_forced_run_equals_c_run(rendered, port_modes, monkeypatch):
+    """Without the port's C modules (the JAX package's stay cached) the
+    host mode runs the numpy threshold and the scipy labeler, with the C
+    run's edges."""
+    monkeypatch.setenv("VICAN_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(tnative, "_cache", {})
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    out = TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode="host",
+                              device="cpu", **KW)
+    assert TP.last_labeler == "scipy"
+    _assert_identical_edges(port_modes["host"], out)
+
+
+def test_port_dataset_reads_rendered_directory(rendered):
+    """The port's Dataset on the rendered directory: the JAX package's file
+    list, timestamps, cameras and ground-truth object poses."""
+    ds = TDS.Dataset(rendered.root)
+    assert ds.im_data["filename"] == rendered.im_data["filename"]
+    assert ds.im_data["timestamp"] == rendered.im_data["timestamp"]
+    assert ds.im_data["cam_id"] == rendered.im_data["cam_id"]
+    assert [c.id for c in ds.im_data["cam"]] == [c.id for c in rendered.im_data["cam"]]
+    assert set(ds.cams) == set(rendered.cams) and set(ds.object) == set(rendered.object)
+    for k, c in rendered.cams.items():
+        ours = ds.cams[k]
+        assert isinstance(ours, TC.Camera)
+        np.testing.assert_array_equal(ours.intrinsics, c.intrinsics)
+        np.testing.assert_array_equal(ours.distortion, c.distortion)
+        np.testing.assert_array_equal(ours.extrinsics.pose(), c.extrinsics.pose())
+        assert (ours.resolution_x, ours.resolution_y) == (c.resolution_x, c.resolution_y)
+    for t, pose in rendered.object.items():
+        np.testing.assert_array_equal(ds.object[t].pose(), pose.pose())

@@ -265,3 +265,31 @@ def test_bipartite_so3sync_matches_jax():
     # the raw factors, too: U V^T with no determinant fix, untransposed
     e = max(np.abs(ours[k] - np.asarray(theirs[k], np.float64)).max() for k in theirs)
     assert e < 1e-9, e
+
+
+def test_bipartite_se3sync_mesh_none_solves(prob):
+    """``mesh=None`` (one card), in the JAX signature's position, solves as
+    a call without it does."""
+    import inspect
+
+    from vican_tpu.bipgo import bipartite_se3sync as jse3
+
+    jparams = list(inspect.signature(jse3).parameters)
+    assert list(inspect.signature(tbipgo.bipartite_se3sync).parameters) == [*jparams, "device"]
+    args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0, lambda e: True)
+    # maxiter, lsqr_solver, dtype, verbose, mesh by position, as the JAX call
+    with_mesh = tbipgo.bipartite_se3sync(*args, 4, "conjugate_gradient", np.float64, False,
+                                         None, device="cpu")
+    without = tbipgo.bipartite_se3sync(*args, maxiter=4, dtype=np.float64, verbose=False,
+                                       device="cpu")
+    assert set(with_mesh) == set(without)
+    for k in without:
+        np.testing.assert_array_equal(with_mesh[k].pose(), without[k].pose())
+
+
+def test_bipartite_se3sync_mesh_raises(prob):
+    """Any other ``mesh`` (sharding over cards) is not ported yet and says
+    where it is queued."""
+    args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0, lambda e: True)
+    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 5"):
+        tbipgo.bipartite_se3sync(*args, maxiter=4, verbose=False, mesh=object(), device="cpu")

@@ -1,14 +1,20 @@
 """Host C components of the port, built at first use.
 
-- ``get_fastpack()``: the edge-dict packer (``fastpack.c``, a copy of the
-  JAX package's), a CPython extension module.
+- ``get_fastpack()``: the edge-dict packer (``fastpack.c``);
+- ``get_fastccl()``: run-based union-find connected components and quad
+  candidates over bit-packed mask rows (``fastccl.c``), perception's host
+  labeler;
+- ``get_fastthresh()``: the multi-window adaptive threshold on the host,
+  bit-packed out (``fastthresh.c``), for the ``host`` and ``roi``
+  perception modes.
 
-The source compiles with the host ``gcc`` (``$CC``) against this
-interpreter's and numpy's headers into ``_build/`` (git ignores it), named
-by a hash of the source and flags.  When the build fails, or under
-``VICAN_TPU_NO_NATIVE=1``, ``get_fastpack()`` returns None and the caller
-takes its pure-Python path, whose output is identical;
-:data:`build_errors` keeps the compiler's message.
+Each is a CPython extension module copied from the JAX package's
+``_native``.  A source compiles with the host ``gcc`` (``$CC``) against
+this interpreter's and numpy's headers into ``_build/`` (git ignores it),
+named by a hash of the source and flags.  When the build fails, or under
+``VICAN_TPU_NO_NATIVE=1``, the getter returns None and the caller takes its
+numpy/scipy/Python path, whose output is identical; :data:`build_errors`
+keeps the compiler's message.
 """
 from __future__ import annotations
 
@@ -72,3 +78,14 @@ def _get_module(name: str):
 def get_fastpack():
     """The compiled edge-packing module, or None when it is unavailable."""
     return _get_module("fastpack")
+
+
+def get_fastccl():
+    """The compiled labeling / quad-candidate module, or None when it is
+    unavailable."""
+    return _get_module("fastccl")
+
+
+def get_fastthresh():
+    """The compiled host threshold module, or None when it is unavailable."""
+    return _get_module("fastthresh")

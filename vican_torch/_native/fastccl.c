@@ -1,0 +1,410 @@
+/* fastccl — connected components + quad candidates for marker detection.
+ *
+ * Labeling is irregular pointer-chasing work that a CPU beats any
+ * dense-tensor formulation at; the detection pipeline therefore splits:
+ * dense numerics (threshold sweep, subpixel refinement, bit decoding, PnP)
+ * on the TPU, component labeling + coarse quad extraction here.
+ * Quality-equivalent to OpenCV's contour stage (8-connected, reference
+ * cam.py:147's detectMarkers internals).
+ *
+ * RUN-BASED union-find: foreground pixels are grouped into per-row runs
+ * and the union-find operates on runs, not pixels — ~20x fewer unions and
+ * no megapixel parent array (the per-pixel variant measured ~16 ms/image
+ * across the 7-window sweep at 720p; runs take ~2 ms).  Component stats
+ * come from run arithmetic (sum over a run is a closed form), and the
+ * farthest-point corner scans evaluate RUN ENDPOINTS only: all three
+ * selection metrics (squared distance from a point, and the signed cross
+ * product against a line) are convex/linear in x along a run, so their
+ * maximum over the run is attained at an endpoint; endpoints are evaluated
+ * in (y, x) scan order with strict '>' comparisons, reproducing the
+ * pixel-sweep's tie-breaking exactly.
+ *
+ * SPLIT CANDIDATES (4-connectivity): at extreme oblique viewing angles,
+ * adjacent markers' border rings blur into ONE 8-connected component via
+ * thin DIAGONAL aliasing strands, and the merged candidate decodes as
+ * nothing (the 8 `only_reference` detections of VERDICT r3; OpenCV's
+ * CORNER_REFINE_APRILTAG escapes via the AprilTag quad detector, whose
+ * union-find is 4-connected).  Since runs are shared, a second union pass
+ * with 4-connected overlap ([s, e] instead of [s-1, e+1]) is nearly free;
+ * 4-connected components that are STRICT SUBSETS of their 8-connected
+ * parent (area4 < area8) are emitted as extra candidates — the dictionary
+ * decode is the backstop, so recall improves with zero false-id risk.
+ *
+ * Exposed as vican_torch._native.fastccl.quad_candidates[_packed/_packed2]();
+ * validated against the scipy fallback in tests/test_torch_fastccl.py.
+ */
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <math.h>
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+typedef struct {
+    int32_t area;
+    int64_t sx, sy; /* centroid accumulators */
+} Stats;
+
+static int32_t find_root(int32_t *parent, int32_t x) {
+    while (parent[x] != x) {
+        parent[x] = parent[parent[x]]; /* path halving */
+        x = parent[x];
+    }
+    return x;
+}
+
+static void unite(int32_t *parent, int32_t a, int32_t b) {
+    a = find_root(parent, a);
+    b = find_root(parent, b);
+    if (a < b) parent[b] = a;
+    else if (b < a) parent[a] = b;
+}
+
+/* Union runs between consecutive rows.  ``margin`` 1 = 8-connectivity
+ * (runs overlapping [s-1, e+1]), 0 = 4-connectivity ([s, e]). */
+static void link_runs(int32_t *parent, int32_t nruns, const int32_t *rs,
+                      const int32_t *re, const int32_t *row_first,
+                      Py_ssize_t H, int32_t margin) {
+    for (int32_t i = 0; i < nruns; i++) parent[i] = i;
+    for (int32_t y = 1; y < H; y++) {
+        int32_t lo = row_first[y], hi = row_first[y + 1];
+        int32_t plo = row_first[y - 1], phi = row_first[y];
+        int32_t j = plo;
+        for (int32_t i = lo; i < hi; i++) {
+            while (j < phi && re[j] < rs[i] - margin) j++;
+            for (int32_t k = j; k < phi && rs[k] <= re[i] + margin; k++)
+                unite(parent, i, k);
+        }
+    }
+}
+
+/* Flatten parents, assign stat slots (roots keep minimum run index, so a
+ * root precedes its children in run order), accumulate run stats. */
+static int run_stats(int32_t *parent, int32_t *slot, int32_t nruns,
+                     const int32_t *rs, const int32_t *re, const int32_t *ry,
+                     Stats **stats_out) {
+    int cap = 256, nstats = 0;
+    Stats *stats = (Stats *)malloc((size_t)cap * sizeof(Stats));
+    if (!stats) return -1;
+    for (int32_t i = 0; i < nruns; i++) {
+        int32_t r = find_root(parent, i);
+        parent[i] = r;
+        int32_t s;
+        if (r == i) {
+            if (nstats == cap) {
+                cap *= 2;
+                stats = (Stats *)realloc(stats, (size_t)cap * sizeof(Stats));
+                if (!stats) return -1;
+            }
+            s = nstats++;
+            stats[s] = (Stats){0, 0, 0};
+        } else {
+            s = slot[r];
+        }
+        slot[i] = s;
+        Stats *st = &stats[s];
+        int64_t len = re[i] - rs[i] + 1;
+        st->area += (int32_t)len;
+        st->sx += (int64_t)(rs[i] + re[i]) * len / 2;
+        st->sy += (int64_t)ry[i] * len;
+    }
+    *stats_out = stats;
+    return nstats;
+}
+
+/* Farthest-point quad corners for the components listed in keep[] (slot ->
+ * output index or -1), writing to corners/areas at out_base.  Run lists are
+ * compacted in ONE sweep; endpoints evaluated in (y, x) scan order. */
+static int corner_pass(const int32_t *slot, int32_t nruns, int nstats,
+                       const int32_t *rs, const int32_t *re, const int32_t *ry,
+                       const Stats *stats, const int *order, int nkeep,
+                       float *corners, int32_t *areas) {
+    int32_t *keep = (int32_t *)malloc((size_t)(nstats > 0 ? nstats : 1) * sizeof(int32_t));
+    int32_t *runcnt = (int32_t *)calloc((size_t)(nkeep > 0 ? nkeep : 1), sizeof(int32_t));
+    if (!keep || !runcnt) { free(keep); free(runcnt); return -1; }
+    for (int s = 0; s < nstats; s++) keep[s] = -1;
+    int64_t total_runs = 0;
+    for (int a = 0; a < nkeep; a++) keep[order[a]] = a;
+    for (int32_t i = 0; i < nruns; i++) {
+        int32_t a = keep[slot[i]];
+        if (a >= 0) { runcnt[a]++; total_runs++; }
+    }
+    int64_t *off = (int64_t *)malloc(((size_t)nkeep + 1) * sizeof(int64_t));
+    int64_t *fill = (int64_t *)malloc(((size_t)nkeep + 1) * sizeof(int64_t));
+    int32_t *lst = (int32_t *)malloc((size_t)(total_runs > 0 ? total_runs : 1) * sizeof(int32_t));
+    if (!off || !fill || !lst) {
+        free(keep); free(runcnt); free(off); free(fill); free(lst);
+        return -1;
+    }
+    off[0] = 0;
+    for (int a = 0; a < nkeep; a++) off[a + 1] = off[a] + runcnt[a];
+    memcpy(fill, off, ((size_t)nkeep + 1) * sizeof(int64_t));
+    for (int32_t i = 0; i < nruns; i++) {
+        int32_t a = keep[slot[i]];
+        if (a >= 0) lst[fill[a]++] = i; /* run-index order == (y, x) order */
+    }
+
+    for (int a = 0; a < nkeep; a++) {
+        const Stats *st = &stats[order[a]];
+        const int32_t *runs = lst + off[a];
+        const int64_t nr = off[a + 1] - off[a];
+        double cx = (double)st->sx / st->area;
+        double cy = (double)st->sy / st->area;
+        double p1x = cx, p1y = cy, best = -1.0;
+        for (int64_t q = 0; q < nr; q++) {
+            int32_t i = runs[q];
+            double y = ry[i];
+            double xs2[2] = {(double)rs[i], (double)re[i]};
+            for (int u = 0; u < 2; u++) {
+                double d = (xs2[u] - cx) * (xs2[u] - cx) + (y - cy) * (y - cy);
+                if (d > best) { best = d; p1x = xs2[u]; p1y = y; }
+            }
+        }
+        double p2x = p1x, p2y = p1y;
+        best = -1.0;
+        for (int64_t q = 0; q < nr; q++) {
+            int32_t i = runs[q];
+            double y = ry[i];
+            double xs2[2] = {(double)rs[i], (double)re[i]};
+            for (int u = 0; u < 2; u++) {
+                double d = (xs2[u] - p1x) * (xs2[u] - p1x) + (y - p1y) * (y - p1y);
+                if (d > best) { best = d; p2x = xs2[u]; p2y = y; }
+            }
+        }
+        double dx = p2x - p1x, dy = p2y - p1y;
+        double p3x = p1x, p3y = p1y, p4x = p2x, p4y = p2y;
+        double bmax = -1e30, bmin = 1e30;
+        for (int64_t q = 0; q < nr; q++) {
+            int32_t i = runs[q];
+            double y = ry[i];
+            double xs2[2] = {(double)rs[i], (double)re[i]};
+            for (int u = 0; u < 2; u++) {
+                double c = (xs2[u] - p1x) * dy - (y - p1y) * dx;
+                if (c > bmax) { bmax = c; p3x = xs2[u]; p3y = y; }
+                if (c < bmin) { bmin = c; p4x = xs2[u]; p4y = y; }
+            }
+        }
+        float *qq = corners + (size_t)a * 8;
+        qq[0] = (float)p1x; qq[1] = (float)p1y;
+        qq[2] = (float)p3x; qq[3] = (float)p3y;
+        qq[4] = (float)p2x; qq[5] = (float)p2y;
+        qq[6] = (float)p4x; qq[7] = (float)p4y;
+        areas[a] = st->area;
+    }
+    free(keep); free(runcnt); free(off); free(fill); free(lst);
+    return 0;
+}
+
+/* Selection-sort the top-K of order[0..n) by area (strict '>' keeps the
+ * original order on ties — slot creation order == scan order). */
+static int top_k(int *order, int n, Py_ssize_t K, const Stats *stats) {
+    if (n > K) {
+        for (int a = 0; a < K; a++) {
+            int best = a;
+            for (int b = a + 1; b < n; b++)
+                if (stats[order[b]].area > stats[order[best]].area) best = b;
+            int tmp = order[a]; order[a] = order[best]; order[best] = tmp;
+        }
+        n = (int)K;
+    }
+    return n;
+}
+
+/* quad_candidates(fg_bytes, H, W, K, min_area, max_area)
+ *   fg_bytes: contiguous uint8 (H*W), nonzero = foreground
+ * quad_candidates_packed(packed_bytes, H, W, Wb, K, min_area, max_area)
+ *   packed_bytes: contiguous (H, Wb) with bit x of a row at
+ *   row[x >> 3] >> (x & 7) (np.packbits bitorder="little") — the exact
+ *   layout fastthresh.c and the device threshold program emit, so the
+ *   ~8x-larger unpacked mask is never materialized on the host.
+ * quad_candidates_packed2(packed_bytes, H, W, Wb, K, K2, min_area, max_area)
+ *   additionally returns up to K2 4-connected SPLIT candidates (see the
+ *   module docstring) in slots [K, K+K2).
+ * All return (corners float32 (K+K2, 4, 2), areas int32 (K+K2,), count8,
+ * count4) — the two-argument forms with K2 = 0 return counts (n, 0).
+ */
+static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
+                         Py_ssize_t Wb, Py_ssize_t K, Py_ssize_t K2,
+                         double min_area, double max_area, int legacy) {
+    const int packed = Wb > 0;
+    const Py_ssize_t stride = packed ? Wb : W;
+    if (fg->len < H * stride) {
+        PyBuffer_Release(fg);
+        PyErr_SetString(PyExc_ValueError, "fg buffer too small");
+        return NULL;
+    }
+    const uint8_t *im = (const uint8_t *)fg->buf;
+
+    /* ---- extract runs per row ---- */
+    int32_t rcap = 4096, nruns = 0;
+    int32_t *rs = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* start x */
+    int32_t *re = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* end x (incl) */
+    int32_t *ry = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* row */
+    int32_t *row_first = (int32_t *)malloc(((size_t)H + 1) * sizeof(int32_t));
+    if (!rs || !re || !ry || !row_first) {
+        free(rs); free(re); free(ry); free(row_first);
+        PyBuffer_Release(fg);
+        return PyErr_NoMemory();
+    }
+    for (int32_t y = 0; y < H; y++) {
+        row_first[y] = nruns;
+        const uint8_t *row = im + (size_t)y * stride;
+        int32_t x = 0;
+        while (x < W) {
+            int32_t s, e;
+            if (packed) {
+                int32_t xb = x >> 3;
+                uint8_t bits = (uint8_t)(row[xb] >> (x & 7));
+                while (!bits) {
+                    xb++;
+                    if (xb >= Wb) break;
+                    bits = row[xb];
+                    x = xb << 3;
+                }
+                if (xb >= Wb || x >= W) break;
+                x += (int32_t)__builtin_ctz(bits);
+                if (x >= W) break;
+                s = x;
+                /* find run end: first zero bit at/after x (bits beyond the
+                 * byte shift in as zeros of invb, so invb == 0 means the
+                 * rest of the byte is all ones) */
+                while (x < W) {
+                    int32_t xb2 = x >> 3;
+                    uint32_t invb = (uint32_t)((uint8_t)~row[xb2]) >> (x & 7);
+                    if (invb) { x += (int32_t)__builtin_ctz(invb); break; }
+                    x = (xb2 + 1) << 3;
+                }
+                if (x > W) x = (int32_t)W;
+                e = x - 1;
+            } else {
+                while (x < W && !row[x]) x++;
+                if (x >= W) break;
+                s = x;
+                while (x < W && row[x]) x++;
+                e = x - 1;
+            }
+            if (nruns == rcap) {
+                rcap *= 2;
+                rs = (int32_t *)realloc(rs, (size_t)rcap * sizeof(int32_t));
+                re = (int32_t *)realloc(re, (size_t)rcap * sizeof(int32_t));
+                ry = (int32_t *)realloc(ry, (size_t)rcap * sizeof(int32_t));
+            }
+            rs[nruns] = s; re[nruns] = e; ry[nruns] = y;
+            nruns++;
+        }
+    }
+    row_first[H] = nruns;
+
+    /* ---- 8-connected components ---- */
+    int32_t *parent8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
+    int32_t *slot8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
+    Stats *stats8 = NULL;
+    link_runs(parent8, nruns, rs, re, row_first, H, 1);
+    int nstats8 = run_stats(parent8, slot8, nruns, rs, re, ry, &stats8);
+
+    int *order = (int *)malloc((size_t)(nstats8 > 0 ? nstats8 : 1) * sizeof(int));
+    int nkeep8 = 0;
+    for (int s = 0; s < nstats8; s++)
+        if (stats8[s].area >= (int32_t)min_area && stats8[s].area <= (int32_t)max_area)
+            order[nkeep8++] = s;
+    nkeep8 = top_k(order, nkeep8, K, stats8);
+
+    float *corners = (float *)calloc((size_t)(K + K2) * 8, sizeof(float));
+    int32_t *areas = (int32_t *)calloc((size_t)(K + K2), sizeof(int32_t));
+    corner_pass(slot8, nruns, nstats8, rs, re, ry, stats8, order, nkeep8,
+                corners, areas);
+
+    /* ---- 4-connected SPLIT candidates ---- */
+    int nkeep4 = 0;
+    if (K2 > 0 && nruns > 0) {
+        int32_t *parent4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
+        int32_t *slot4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
+        Stats *stats4 = NULL;
+        link_runs(parent4, nruns, rs, re, row_first, H, 0);
+        int nstats4 = run_stats(parent4, slot4, nruns, rs, re, ry, &stats4);
+        /* area of the 8-conn parent of each 4-conn component: the 4-conn
+         * root run belongs to exactly one 8-conn component */
+        int32_t *root_run4 = (int32_t *)malloc((size_t)nstats4 * sizeof(int32_t));
+        for (int32_t i = nruns - 1; i >= 0; i--) root_run4[slot4[i]] = i;
+        int *order4 = (int *)malloc((size_t)nstats4 * sizeof(int));
+        for (int s = 0; s < nstats4; s++) {
+            int32_t a4 = stats4[s].area;
+            if (a4 < (int32_t)min_area || a4 > (int32_t)max_area) continue;
+            int32_t a8 = stats8[slot8[root_run4[s]]].area;
+            if (a4 >= a8) continue; /* not a split: same component either way */
+            order4[nkeep4++] = s;
+        }
+        nkeep4 = top_k(order4, nkeep4, K2, stats4);
+        corner_pass(slot4, nruns, nstats4, rs, re, ry, stats4, order4, nkeep4,
+                    corners + (size_t)K * 8, areas + K);
+        free(order4); free(root_run4); free(stats4); free(slot4); free(parent4);
+    }
+
+    free(order); free(stats8); free(slot8); free(parent8);
+    free(rs); free(re); free(ry); free(row_first);
+    PyBuffer_Release(fg);
+
+    PyObject *c_bytes = PyBytes_FromStringAndSize(
+        (char *)corners, (Py_ssize_t)(K + K2) * 8 * sizeof(float));
+    PyObject *a_bytes = PyBytes_FromStringAndSize(
+        (char *)areas, (Py_ssize_t)(K + K2) * sizeof(int32_t));
+    free(corners);
+    free(areas);
+    if (legacy)
+        return Py_BuildValue("(NNi)", c_bytes, a_bytes, nkeep8);
+    return Py_BuildValue("(NNii)", c_bytes, a_bytes, nkeep8, nkeep4);
+}
+
+static PyObject *quad_candidates(PyObject *self, PyObject *args) {
+    Py_buffer fg;
+    Py_ssize_t H, W, K;
+    double min_area, max_area;
+    if (!PyArg_ParseTuple(args, "y*nnndd", &fg, &H, &W, &K, &min_area, &max_area))
+        return NULL;
+    return qc_impl(&fg, H, W, 0, K, 0, min_area, max_area, 1);
+}
+
+static PyObject *quad_candidates_packed(PyObject *self, PyObject *args) {
+    Py_buffer fg;
+    Py_ssize_t H, W, Wb, K;
+    double min_area, max_area;
+    if (!PyArg_ParseTuple(args, "y*nnnndd", &fg, &H, &W, &Wb, &K, &min_area, &max_area))
+        return NULL;
+    if (Wb * 8 < W) {
+        PyBuffer_Release(&fg);
+        PyErr_SetString(PyExc_ValueError, "Wb too small for W");
+        return NULL;
+    }
+    return qc_impl(&fg, H, W, Wb, K, 0, min_area, max_area, 1);
+}
+
+static PyObject *quad_candidates_packed2(PyObject *self, PyObject *args) {
+    Py_buffer fg;
+    Py_ssize_t H, W, Wb, K, K2;
+    double min_area, max_area;
+    if (!PyArg_ParseTuple(args, "y*nnnnndd", &fg, &H, &W, &Wb, &K, &K2,
+                          &min_area, &max_area))
+        return NULL;
+    if (Wb * 8 < W) {
+        PyBuffer_Release(&fg);
+        PyErr_SetString(PyExc_ValueError, "Wb too small for W");
+        return NULL;
+    }
+    return qc_impl(&fg, H, W, Wb, K, K2, min_area, max_area, 0);
+}
+
+static PyMethodDef methods[] = {
+    {"quad_candidates", quad_candidates, METH_VARARGS,
+     "Run-based union-find CCL + farthest-point quad corners."},
+    {"quad_candidates_packed", quad_candidates_packed, METH_VARARGS,
+     "Same, reading a bit-packed (H, Wb) mask (np.packbits little-endian)."},
+    {"quad_candidates_packed2", quad_candidates_packed2, METH_VARARGS,
+     "Packed variant that also emits 4-connected split candidates."},
+    {NULL, NULL, 0, NULL},
+};
+
+static struct PyModuleDef moduledef = {
+    PyModuleDef_HEAD_INIT, "fastccl", NULL, -1, methods,
+};
+
+PyMODINIT_FUNC PyInit_fastccl(void) { return PyModule_Create(&moduledef); }

@@ -216,6 +216,7 @@ def bipartite_se3sync(
     lsqr_solver: str = "conjugate_gradient",
     dtype=np.float32,
     verbose: bool = True,
+    mesh=None,
     device=None,
 ) -> dict:
     """SE(3) synchronization in large bipartite graphs with node constraints.
@@ -225,13 +226,18 @@ def bipartite_se3sync(
     device (``lsqr_solver``: ``"conjugate_gradient"`` for CG on the normal
     equations, ``"direct"`` for LSQR, bipgo.py:476-480).  Returns
     ``{node: SE3}`` world-frame poses for cameras and ``"<t>_0"`` object
-    nodes.  ``device``: where the solve runs; ``None`` is the CUDA card.
+    nodes.  ``mesh``: only ``None`` (one card) is ported; sharding the
+    large-graph chunk stream over several cards is ROADMAP section 1 item 5.
+    ``device``: where the solve runs; ``None`` is the CUDA card.
     """
     if lsqr_solver not in ("conjugate_gradient", "direct"):
         raise ValueError(
             f"unknown lsqr_solver: {lsqr_solver!r}; "
             "expected 'conjugate_gradient' or 'direct'"
         )
+    if mesh is not None:
+        raise NotImplementedError("mesh= (the large-graph solve sharded over cards) is not "
+                                  "ported yet (ROADMAP section 1 item 5)")
     device, dtype, tdt, tm, packed = _start(
         src_edges, constraints, noise_model_r, noise_model_t, edge_filter, dtype, verbose,
         device)

@@ -113,7 +113,7 @@ def estimate_pose_mp(
     marker_ids: Iterable[str] | None,
     batch_size: int = 32,
     mesh=None,
-    pipeline_mode: str = "device",
+    pipeline_mode: str = "auto",
     detector_params=None,
     verbose: bool = True,
     device=None,
@@ -123,9 +123,12 @@ def estimate_pose_mp(
     The reference fans out one OpenCV pipeline per image over a
     multiprocessing pool; here images stream through a host decode stage into
     batches on the card (thresholding, corner refinement, decoding, IPPE PnP
-    and LM refinement -- see :mod:`vican_torch.perception`).  ``device=None``
-    is the CUDA card (raises without one); ``device="cpu"`` runs the plain
-    versions of the kernels.
+    and LM refinement -- see :mod:`vican_torch.perception`).
+    ``pipeline_mode``: ``"auto"`` (= ``"device"``: the threshold kernel on
+    the card), ``"device"``, ``"host"`` or ``"roi"`` (the threshold on the
+    host); every mode gives the same detections.  ``device=None`` is the
+    CUDA card (raises without one); ``device="cpu"`` runs the plain versions
+    of the kernels.
 
     Returns the reference edge dict: keys ``(cam_id, "<t>_<marker>")``, values
     with ``pose`` / ``corners`` / ``reprojected_err`` / ``im_filename``.

@@ -1,26 +1,41 @@
-"""Batched perception in device mode: frames -> camera-marker edge dict.
+"""Batched perception: frames -> camera-marker edge dict.
 
-The port of ``vican_tpu.perception`` in its ``"device"`` pipeline mode,
-the mode the JAX package recommends for an accelerator on PCIe
-(vican_tpu/perception.py:21-26).  Per batch of frames:
+The port of ``vican_tpu.perception``.  Per batch of frames, in the
+``"device"`` pipeline mode (the default: ``"auto"`` resolves to it, the
+mode the JAX package recommends for an accelerator on PCIe,
+vican_tpu/perception.py:21-26):
 
 1. upload the uint8 gray batch to the card;
 2. threshold it at every window size in ONE launch of the CUDA kernel
    ``vican_torch/csrc/threshold.cu`` (:func:`vican_torch.ops.threshold.
    multi_threshold`), which returns bit-packed masks;
 3. fetch the packed masks (W/8 bytes per row and window) to the host;
-4. extract quad candidates on the host (scipy.ndimage labeling, the path
-   the JAX package proves bit-identical to its C labeler);
+4. extract quad candidates on the host: the run-based union-find of
+   ``_native/fastccl.c`` reads the packed rows directly (the scipy.ndimage
+   labeler, bit-identical by construction, when the C build fails;
+   :data:`last_labeler` says which ran);
 5. refine, decode and deduplicate the candidates on the card over the
    resident frame (:mod:`vican_torch.ops.detect`);
 6. solve each detection's pose (:mod:`vican_torch.ops.pnp`) and fetch one
    packed result buffer;
 7. fill the reference edge dict (cam.py:120-124 schema).
 
+The ``"host"`` mode replaces steps 2-3 by the host threshold
+(:func:`host_threshold`: ``_native/fastthresh.c``, or its numpy stand-in
+with the same bytes) on the exact frame; the kernel is not launched.  The
+``"roi"`` mode keeps its JAX contract (host threshold and candidates,
+detections identical to the full-frame modes) and runs the ``host``
+program: the JAX package's tile upload (``ops/roi.py``) was transport for
+a slow host link.  ``roi`` with the ``subpix`` refiner runs the ``device``
+program, as in the JAX package.  Every mode gives the same detections for
+an integral ``thresh_const`` (the default, 10); for another the host
+threshold compares in float64 and the kernel in float32, as in the JAX
+package.  The ``pure`` mode and ``mesh=`` are not ported yet (ROADMAP
+section 1).
+
 :func:`estimate_pose_gray` is the stage that takes gray uint8 frames;
 :func:`estimate_pose_batched` decodes image files with OpenCV (imported
-only when it is called) and feeds it.  The ``roi``, ``host`` and ``pure``
-modes and ``mesh=`` are not ported yet (ROADMAP section 1).
+only when it is called) and feeds it.
 
 Corner convention: corners are the physical marker boundary (intensity
 transition midpoint), as in the JAX package.
@@ -42,14 +57,22 @@ __all__ = [
     "estimate_pose_gray",
     "load_images",
     "host_preprocess",
+    "host_threshold",
+    "host_candidates",
     "quads_from_masks",
     "quads_from_packed_masks",
     "PHASES",
 ]
 
-# the per-batch phases of the device mode, in order (PhaseTimer names)
-PHASES = ("upload", "threshold kernel", "masks to host", "host candidates",
-          "detect program", "PnP", "dict")
+# the per-batch phases, in order (PhaseTimer names): the device program
+# runs "threshold kernel" and "masks to host", the host program "host
+# threshold"
+PHASES = ("upload", "threshold kernel", "masks to host", "host threshold",
+          "host candidates", "detect program", "PnP", "dict")
+
+# the host labeler that the last quads_from_masks / quads_from_packed_masks
+# call ran: "c" (_native/fastccl.c) or "scipy"
+last_labeler: str | None = None
 
 
 def load_images(filenames: Iterable[str], grayscale: bool = False) -> np.ndarray:
@@ -290,25 +313,45 @@ def _refit_degenerate_quad(mask, quad, area, H, W, conn4=False):
     return _max_area_quad(hull.astype(np.float64))
 
 
+def _get_ccl():
+    from ._native import get_fastccl
+
+    return get_fastccl()
+
+
 def quads_from_masks(fg: np.ndarray, params) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Union-find quad candidates from a (B, Wn, H, W) foreground batch.
 
     Returns ``(quads (B, Q, 4, 2) float32, valid (B, Q) bool, areas)`` with
     ``Q = Wn * (max_candidates + max_candidates_4conn)``; quads are
-    clockwise-wound and gated.  The JAX package extracts them in C
-    (fastccl.c) and proves the scipy.ndimage extractor below bit-identical
-    to it, 4-connected split candidates included; the port has only the
-    scipy path (the C labeler is on ROADMAP section 1).
+    clockwise-wound and gated.  The C labeler (fastccl.c, split-capable
+    packed2 entry, fed bit-packed rows) runs when it built; otherwise the
+    scipy.ndimage extractor below reproduces it bit for bit, 4-connected
+    split candidates included: both return the SAME slot layout and
+    detections (vican_tpu/perception.py:303-334).
     """
+    global last_labeler
+    ccl = _get_ccl()
     B = fg.shape[0]
     H, W = fg.shape[2], fg.shape[3]
     K2 = params.max_candidates_4conn
     max_area = params.max_area_rate * H * W
+    if ccl is not None:
+        Wb = -(-W // 8)
 
-    def extract(b, wi):
-        return _candidates_scipy(fg[b, wi], params.max_candidates, K2,
-                                 params.min_area, max_area)
+        def extract(b, wi):
+            packed = np.packbits(fg[b, wi], axis=-1, bitorder="little")
+            return ccl.quad_candidates_packed2(
+                np.ascontiguousarray(packed), H, W, Wb,
+                params.max_candidates, K2, params.min_area, max_area)
 
+        last_labeler = "c"
+    else:
+        def extract(b, wi):
+            return _candidates_scipy(fg[b, wi], params.max_candidates, K2,
+                                     params.min_area, max_area)
+
+        last_labeler = "scipy"
     return _collect_window_candidates(B, fg.shape[1], H, W, params, extract,
                                       K2=K2, mask_of=lambda b, wi: fg[b, wi])
 
@@ -473,10 +516,115 @@ def _collect_window_candidates(B, Wn, H, W, params, extract, K2=0,
 
 
 def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params):
-    """Quad candidates from bit-packed (B, Wn, H, ceil(W/8)) masks: unpack
-    (little-endian bits, cropped to W) and :func:`quads_from_masks`."""
-    fg = np.unpackbits(packed, axis=-1, bitorder="little")[..., :W]
-    return quads_from_masks(fg[:, :, :H], params)
+    """Quad candidates from bit-packed (B, Wn, H, ceil(W/8)) masks
+    (little-endian bits; bits of columns >= W must be zero, as the
+    threshold kernel, its plain version and :func:`host_threshold` leave
+    them).
+
+    Same output contract as :func:`quads_from_masks`.  The C labeler reads
+    the packed rows directly and skips empty bytes; a window is unpacked
+    only to re-fit a candidate that the gates rejected
+    (vican_tpu/perception.py:496-535).  Without the C module the masks are
+    unpacked for the scipy labeler.
+    """
+    global last_labeler
+    ccl = _get_ccl()
+    if ccl is None:
+        fg = np.unpackbits(packed, axis=-1, bitorder="little")[..., :W]
+        return quads_from_masks(fg[:, :, :H], params)
+
+    B, Wn, _, Wb = packed.shape
+    K2 = params.max_candidates_4conn
+    max_area = params.max_area_rate * H * W
+
+    def mask_of(b, wi):  # unpacked lazily, only for gate-rejected re-fits
+        return np.unpackbits(packed[b, wi, :H], axis=-1, bitorder="little")[:, :W]
+
+    last_labeler = "c"
+    if K2 > 0:
+        return _collect_window_candidates(
+            B, Wn, H, W, params,
+            lambda b, wi: ccl.quad_candidates_packed2(
+                np.ascontiguousarray(packed[b, wi, :H]), H, W, Wb,
+                params.max_candidates, K2, params.min_area, max_area),
+            K2=K2, mask_of=mask_of)
+    return _collect_window_candidates(
+        B, Wn, H, W, params,
+        lambda b, wi: ccl.quad_candidates_packed(
+            np.ascontiguousarray(packed[b, wi, :H]), H, W, Wb,
+            params.max_candidates, params.min_area, max_area),
+        mask_of=mask_of)
+
+
+def _get_thresh():
+    from ._native import get_fastthresh
+
+    return get_fastthresh()
+
+
+def host_threshold(gray: np.ndarray, params) -> np.ndarray:
+    """The multi-window adaptive threshold on the host: uint8 ``(B, H, W)``
+    -> bit-packed ``(B, Wn, H, ceil(W/8))`` uint8, the layout of
+    :func:`vican_torch.ops.threshold.multi_threshold`.
+
+    The C integral-image sweep (``_native/fastthresh.c``) runs when it
+    built, else :func:`_threshold_pack_numpy`; both apply the exact integer
+    compare ``(g + C) win^2 <= boxsum`` for an integral ``thresh_const``
+    (the default, 10), which is the device kernel's float32 test on every
+    pixel, so the masks are the kernel's byte for byte.  A non-integral C
+    is compared in float64 here and in float32 on the card, as in the JAX
+    package (vican_tpu/perception.py:568-626), and may differ on ties.
+    """
+    B, H, W = gray.shape
+    wins = tuple(int(w) for w in params.win_sizes)
+    th = _get_thresh()
+    packed = np.empty((B, len(wins), H, -(-W // 8)), np.uint8)
+    for b in range(B):
+        g = np.ascontiguousarray(gray[b])
+        if th is not None:
+            buf = th.threshold_pack(g, H, W, wins, float(params.thresh_const))
+            packed[b] = np.frombuffer(buf, np.uint8).reshape(packed.shape[1:])
+        else:
+            packed[b] = _threshold_pack_numpy(g, wins, params.thresh_const)
+    return packed
+
+
+def host_candidates(gray: np.ndarray, params) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-threshold path: :func:`host_threshold` then
+    :func:`quads_from_packed_masks` on a uint8 ``(B, H, W)`` batch, as the
+    ``host`` and ``roi`` modes run it."""
+    _, H, W = gray.shape
+    return quads_from_packed_masks(host_threshold(gray, params), H, W, params)
+
+
+def _threshold_pack_numpy(g: np.ndarray, wins, C) -> np.ndarray:
+    """numpy stand-in for fastthresh.c, identical masks by construction.
+
+    One replicate-padded int32 integral image sweeps every window size;
+    an integral C takes the same exact integer compare
+    ``(g + C) * win^2 <= boxsum`` (see fastthresh.c for why it equals the
+    device kernel's float32 test), another C the float64 test of
+    fastthresh.c.
+    """
+    H, W = g.shape
+    R = max(w // 2 for w in wins)
+    gp = np.pad(g, R, mode="edge").astype(np.int32)
+    ii = np.zeros((H + 2 * R + 1, W + 2 * R + 1), np.int32)
+    np.cumsum(np.cumsum(gp, axis=0), axis=1, out=ii[1:, 1:])
+    out = np.empty((len(wins), H, -(-W // 8)), np.uint8)
+    gi = g.astype(np.int32)
+    c_int = float(C).is_integer()
+    for wi, win in enumerate(wins):
+        r = win // 2
+        a, b = R - r, R + r + 1  # padded-coord offsets of the window box
+        s = (ii[b:b + H, b:b + W] - ii[a:a + H, b:b + W]
+             - ii[b:b + H, a:a + W] + ii[a:a + H, a:a + W])
+        if c_int:
+            fg = (gi + int(C)) * (win * win) <= s
+        else:
+            fg = gi.astype(np.float64) <= s.astype(np.float64) / (win * win) - C
+        out[wi] = np.packbits(fg, axis=1, bitorder="little")
+    return out
 
 
 def _pnp_block(det, Ks, dists, marker_size, lm_iters, pnp_method):
@@ -513,14 +661,18 @@ def _unpack_pnp_result(out: np.ndarray):
             out[:, 10:19].reshape(N, 3, 3), out[:, 19:22], out[:, 22])
 
 
-class _DeviceMode:
-    """The per-batch program of the device mode for one configuration."""
+class _Program:
+    """The per-batch program for one configuration: ``mode`` ``"device"``
+    (threshold kernel on the card, packed masks to the host) or ``"host"``
+    (host threshold on the exact frame); candidates, detect and PnP are
+    shared (vican_tpu/perception.py:1420-1681)."""
 
-    def __init__(self, aruco, marker_size, corner_refine, flags, lm_iters,
+    def __init__(self, mode, aruco, marker_size, corner_refine, flags, lm_iters,
                  detector_params, device):
         from .ops import detect as D_
         from .ops.dictionary import get_dictionary, marker_bits_table
 
+        self.mode = mode
         self.device = device
         self.marker_size = float(marker_size)
         self.lm_iters = lm_iters
@@ -568,10 +720,15 @@ class _DeviceMode:
             g = torch.as_tensor(gray).to(dev).contiguous()
             Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
             dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
-        with timer.phase("threshold kernel"):
-            packed = multi_threshold(g, p.win_sizes, p.thresh_const)
-        with timer.phase("masks to host"):
-            packed = packed.cpu().numpy()
+        if self.mode == "device":
+            with timer.phase("threshold kernel"):
+                packed = multi_threshold(g, p.win_sizes, p.thresh_const)
+            with timer.phase("masks to host"):
+                packed = packed.cpu().numpy()
+        else:
+            with timer.phase("host threshold"):
+                host = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
+                packed = host_threshold(host, p)
         with timer.phase("host candidates"):
             quads, valid, areas = quads_from_packed_masks(packed, H, W, p)
         with timer.phase("detect program"):
@@ -589,9 +746,51 @@ def _camera_arrays(cams):
     return Ks, dists
 
 
-def _edges(batches, B, program: _DeviceMode, timer: PhaseTimer, verbose: bool) -> dict:
-    """Run ``(files, cams, gray (nb, H, W) uint8)`` batches through the
-    device mode, in order: a tail batch is padded to ``B`` frames with
+def _has_host_ccl() -> bool:
+    """The modes of the port need a host component labeler: the C module
+    (fastccl.c) or the bit-identical scipy.ndimage stand-in."""
+    if _get_ccl() is not None:
+        return True
+    try:
+        import scipy.ndimage  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def _resolve_mode(pipeline_mode: str) -> str:
+    """``pipeline_mode`` as requested -> ``"device"``, ``"host"`` or
+    ``"roi"`` (vican_tpu/perception.py:1197-1211, without its environment
+    override).  ``"auto"`` is ``"device"`` here: on the card the threshold
+    kernel takes a fraction of a millisecond per batch, where the host
+    threshold costs milliseconds a frame.  Without a host labeler every
+    mode would fall back to ``"pure"``, which is not ported (ROADMAP
+    section 1 item 4)."""
+    if pipeline_mode not in ("auto", "roi", "device", "host", "pure"):
+        raise ValueError(f"unknown perception pipeline mode: {pipeline_mode!r}")
+    mode = "device" if pipeline_mode == "auto" else pipeline_mode
+    if mode == "pure" or not _has_host_ccl():
+        raise NotImplementedError(
+            "pipeline_mode='pure' (the whole detection as one device program, the fallback "
+            "without a host labeler) is not ported yet (ROADMAP section 1 item 4)")
+    return mode
+
+
+def _program_mode(mode: str, corner_refine: str) -> str:
+    """The program a resolved mode runs: ``"roi"`` runs the ``"host"``
+    program, but with the ``subpix`` refiner the ``"device"`` one
+    (vican_tpu/perception.py:1285-1290: cornerSubPix samples without bound,
+    so the JAX package's ROI contract cannot hold for it)."""
+    if mode == "roi":
+        subpix = resolve(CORNER_REFINE, corner_refine, "corner_refine") == "subpix"
+        return "device" if subpix else "host"
+    return mode
+
+
+def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool) -> dict:
+    """Run ``(files, cams, gray (nb, H, W) uint8)`` batches through
+    ``program``, in order: a tail batch is padded to ``B`` frames with
     copies of its last frame and camera (vican_tpu/perception.py:1343-1345)
     and only its ``nb`` real frames enter the dict."""
     out: dict = {}
@@ -645,21 +844,25 @@ def estimate_pose_gray(
     device=None,
     verbose: bool = True,
     timer: PhaseTimer | None = None,
+    pipeline_mode: str = "auto",
 ) -> dict:
-    """The device mode from preprocessed gray frames: uint8 ``(N, H, W)``
-    (a numpy array or a tensor on any device) with one file name and one
+    """Perception from preprocessed gray frames: uint8 ``(N, H, W)`` (a
+    numpy array or a tensor on any device) with one file name and one
     camera per frame -> the reference edge dict.  The file names only name
     the detections (``"<parent dir>_<marker>"``, :func:`gen_marker_uid`).
 
-    ``device=None`` is the CUDA card (raises without one).  ``timer``
-    collects the per-batch phases (:data:`PHASES`)."""
+    ``pipeline_mode``: ``"auto"`` (= ``"device"``), ``"device"``,
+    ``"host"`` or ``"roi"`` (module docstring); all give the same
+    detections.  ``device=None`` is the CUDA card (raises without one).
+    ``timer`` collects the per-batch phases (:data:`PHASES`)."""
+    mode = _resolve_mode(pipeline_mode)
     device = resolve_device(device)
     no_tf32()
     im_filenames, cams = list(im_filenames), list(cams)
     if not (len(gray) == len(im_filenames) == len(cams)):
         raise ValueError("estimate_pose_gray: one file name and one camera per frame")
-    program = _DeviceMode(aruco, marker_size, corner_refine, flags, lm_iters,
-                          detector_params, device)
+    program = _Program(_program_mode(mode, corner_refine), aruco, marker_size,
+                       corner_refine, flags, lm_iters, detector_params, device)
     timer = timer or PhaseTimer(verbose=False, device=device)
     B = batch_size
     batches = ((im_filenames[s:s + B], cams[s:s + B], gray[s:s + B])
@@ -680,25 +883,21 @@ def estimate_pose_batched(
     lm_iters: int = 20,
     detector_params=None,
     mesh=None,
-    pipeline_mode: str = "device",
+    pipeline_mode: str = "auto",
     verbose: bool = True,
     device=None,
     timer: PhaseTimer | None = None,
 ) -> dict:
     """Run the perception pipeline over image files (JPEG decode and the
     reference's brightness/contrast/gray preprocess on the host with
-    OpenCV, then :func:`estimate_pose_gray`'s device mode).
+    OpenCV, then the batches of :func:`estimate_pose_gray`).
 
-    ``pipeline_mode``: ``"device"``; ``"auto"`` means ``"device"`` here.
-    Cameras of different resolutions are grouped and their dicts merged,
-    as in the JAX package.  Returns the reference edge dict.
+    ``pipeline_mode``: ``"auto"`` (= ``"device"``), ``"device"``,
+    ``"host"`` or ``"roi"`` (module docstring); ``"pure"`` is not ported
+    yet.  Cameras of different resolutions are grouped and their dicts
+    merged, as in the JAX package.  Returns the reference edge dict.
     """
-    if pipeline_mode in ("roi", "host", "pure"):
-        raise NotImplementedError(
-            f"pipeline_mode={pipeline_mode!r} is not ported yet (ROADMAP section 1); "
-            "use 'device'")
-    if pipeline_mode not in ("device", "auto"):
-        raise ValueError(f"unknown perception pipeline mode: {pipeline_mode!r}")
+    mode = _resolve_mode(pipeline_mode)
     if mesh is not None:
         raise NotImplementedError("mesh= (data parallelism over cards) is not ported yet "
                                   "(ROADMAP section 1)")
@@ -723,11 +922,11 @@ def estimate_pose_batched(
             out_all.update(estimate_pose_batched(
                 fns, cs, aruco, marker_size, corner_refine, brightness, contrast, flags,
                 batch_size=batch_size, lm_iters=lm_iters, detector_params=detector_params,
-                verbose=verbose, device=device, timer=timer))
+                pipeline_mode=mode, verbose=verbose, device=device, timer=timer))
         return out_all
 
-    program = _DeviceMode(aruco, marker_size, corner_refine, flags, lm_iters,
-                          detector_params, device)
+    program = _Program(_program_mode(mode, corner_refine), aruco, marker_size,
+                       corner_refine, flags, lm_iters, detector_params, device)
     timer = timer or PhaseTimer(verbose=False, device=device)
     B = batch_size
     gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
