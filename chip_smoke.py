@@ -29,7 +29,15 @@ device split, then drives two paths:
   detections, the edges must be accurate against ground truth, and
   ``bipartite_se3sync`` on them must recover all 8 cameras; then the
   ``host`` mode (host threshold, no kernel launch) over the same frames and
-  ``roi`` and ``auto`` over 64 of them must give the same edges.
+  ``roi`` and ``auto`` over 64 of them must give the same edges;
+- the tutorial flow (examples/tutorial.py, the reference's main.ipynb),
+  :func:`tutorial_phase`: a 1000-frame cube capture and a 4-camera,
+  1000-frame room capture rendered on the card at 1280x720, the tutorial's
+  preprocess on the host, detection in the default mode, the cube's 24
+  markers calibrated from its capture, the camera network solved from the
+  room's detections and evaluated against ground truth; the first 8 room
+  frames on the CPU must give the same detections and the room's edge dict
+  must survive ``save_edges``/``load_edges``.
 
 One JSON line per phase; any failed check raises, so the exit code is not
 0.  The last lines are the card's ``nvidia-smi`` name and power limit, the
@@ -47,11 +55,14 @@ public wrapper (:func:`split_phase`), so a copy of this file times an
 older checkout's kernels too; ``python3 chip_smoke.py --threshold`` builds
 the threshold kernel, renders the 32 frames its phase needs, runs
 :func:`threshold_phase` (it too runs in an older checkout), then, where
-the checkout has the launch plan, :func:`threshold_sweep`, and stops.
+the checkout has the launch plan, :func:`threshold_sweep`, and stops;
+``python3 chip_smoke.py --tutorial`` builds the threshold kernel and the C
+modules, runs :func:`tutorial_phase`, and stops.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -120,6 +131,28 @@ SCENE_DISTORTED = ("1", "5")
 PERCEPTION_KW = dict(aruco="DICT_4X4_1000", marker_size=SCENE_MARKER,
                      corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
                      batch_size=32, verbose=False)
+
+# Tutorial flow (examples/tutorial.py's synthetic mode, the reference's
+# main.ipynb): its marker size, ids, 4-camera rig (examples/tutorial.py:72-74,
+# wander, seed 1) and cube-calibration camera, at half the reference
+# captures' scale, both at 1280x720: 1000 cube frames (the reference's
+# cube_calib has 2000) and 250 room timesteps over 4 cameras, 1000 frames
+# (the notebook's tmax of 2000 timesteps would be 8000 frames).  At 2000 +
+# 2000 frames the phase took 318 s on an H100, over its ~300 s share of the
+# smoke's time.
+TUTORIAL_MARKER = 0.138
+TUTORIAL_IDS = [str(i) for i in range(24)]
+TUTORIAL_RIG = [(3, 0, 1.2), (0, 3, 1.5), (-3, 0, 1.0), (0, -3, 1.3)]
+TUTORIAL_CUBE_POS = (1.1, 0.2, 1.1)
+TUTORIAL_CUBE_FRAMES = 1000
+TUTORIAL_ROOM_STEPS = 250
+TUTORIAL_TMAX = 2000
+TUTORIAL_RES = (1280, 720)
+TUTORIAL_PREPROCESS = dict(brightness=-150.0, contrast=120.0)
+TUTORIAL_KW = dict(aruco="DICT_4X4_1000", marker_size=TUTORIAL_MARKER,
+                   corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+                   batch_size=32, verbose=False)
+RENDER_CHUNK = 64  # frames rendered on the card per call
 
 
 def emit(phase: str, **fields) -> None:
@@ -804,11 +837,12 @@ def _ragged(batch):
     return F.pad(g, (0, 3, 0, 1), mode="replicate")[:, 0].to(batch.dtype).contiguous()
 
 
-def _perception_run(frames, names, frame_cams, **kw):
-    """One timed ``estimate_pose_gray`` run on the card: ``(edges, row)``,
-    the row with images/s, the summed phase split (:data:`PHASES` of the
-    checkout), the threshold kernel's launches and the labeler (a checkout
-    without ``perception.last_labeler`` has only scipy's)."""
+def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
+    """One timed ``estimate_pose_gray`` run on the card with the arguments
+    ``base`` and ``kw``: ``(edges, row)``, the row with images/s, the summed
+    phase split (:data:`PHASES` of the checkout), the threshold kernel's
+    launches and the labeler (a checkout without
+    ``perception.last_labeler`` has only scipy's)."""
     import torch
 
     from vican_torch import perception
@@ -819,13 +853,13 @@ def _perception_run(frames, names, frame_cams, **kw):
     timer = PhaseTimer(verbose=False, device=torch.device("cuda"))
     multi_threshold.launches = 0
     t0 = time.perf_counter()
-    edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **PERCEPTION_KW, **kw)
+    edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **base, **kw)
     seconds = time.perf_counter() - t0
     launches = multi_threshold.launches
     split = {p: sum(e["seconds"] for e in timer.events if e["name"] == p) for p in PHASES}
     return edges, dict(frames=len(names), seconds=seconds, images_per_s=len(names) / seconds,
                        phase_s=split, detections=len(edges), kernel_launches=launches,
-                       batches=-(-len(names) // PERCEPTION_KW["batch_size"]),
+                       batches=-(-len(names) // base["batch_size"]),
                        labeler=getattr(perception, "last_labeler", "scipy"))
 
 
@@ -975,6 +1009,161 @@ def perception_modes(device_run) -> None:
         raise AssertionError(f"perception_modes: {faults}")
 
 
+def _tutorial_capture(cams: dict, traj: dict, markers: dict, dev):
+    """One capture of the tutorial, rendered on the card in chunks of
+    timesteps, fetched to the host as decoded files would arrive there,
+    and preprocessed there as the tutorial asks (brightness -150, contrast
+    120; ``perception.host_preprocess``).  Returns ``(gray (N, H, W) uint8,
+    names, frame_cams, render_s, preprocess_s)``."""
+    import torch
+
+    from vican_torch import render
+    from vican_torch.perception import host_preprocess
+
+    steps = list(traj)
+    per_chunk = max(RENDER_CHUNK // len(cams), 1)
+    W, H = TUTORIAL_RES
+    gray = np.empty((len(steps) * len(cams), H, W), np.uint8)
+    names, frame_cams = [], []
+    render_s = preprocess_s = 0.0
+    for s in range(0, len(steps), per_chunk):
+        chunk = {t: traj[t] for t in steps[s:s + per_chunk]}
+        t0 = time.perf_counter()
+        frames, n, c = render.render_frames(cams, chunk, markers, marker_size=TUTORIAL_MARKER,
+                                            device=dev)
+        frames = frames.cpu().numpy()
+        t1 = time.perf_counter()
+        gray[len(names):len(names) + len(n)] = host_preprocess(frames, **TUTORIAL_PREPROCESS)
+        preprocess_s += time.perf_counter() - t1
+        render_s += t1 - t0
+        names += n
+        frame_cams += c
+    torch.cuda.synchronize()
+    return gray, names, frame_cams, render_s, preprocess_s
+
+
+def tutorial_phase(dev) -> int:
+    """Phase T: examples/tutorial.py's flow on the card at half the
+    reference captures' scale, with its hyperparameters.  Both captures
+    are rendered on the card; the cube is calibrated from its capture (float64), the
+    room capture's detections solve the camera network (float32), and the
+    result is evaluated against ground truth (cell 9).  Fails unless all 24
+    markers calibrate, the cameras come within 1 degree and 10 cm on
+    average (tests/test_tutorial.py's bars), the threshold kernel launched
+    once per batch, the first 8 room frames on the CPU give the same
+    detections, and the room's edge dict survives ``save_edges`` /
+    ``load_edges`` unchanged.  Returns T's launches of the kernel."""
+    import tempfile
+
+    import torch
+
+    from vican_torch.bipgo import bipartite_se3sync, object_bipartite_se3sync
+    from vican_torch.evaluation import evaluate_calibration
+    from vican_torch.ops.shoelace import polygon_area
+    from vican_torch.perception import estimate_pose_gray
+    from vican_torch.render import make_cube_markers
+    from vican_torch.serialization import load_edges, save_edges
+    from vican_torch.synthetic import _cube_scene, calibration_sweep
+
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    markers = make_cube_markers()
+
+    def detect(gray, names, frame_cams):
+        """One capture's detections of the tutorial's markers, and all of
+        them, with the run's row (the kernel's launches counted from 0)."""
+        edges, run = _perception_run(gray, names, frame_cams, base=TUTORIAL_KW)
+        ids = set(TUTORIAL_IDS)
+        kept = {k: v for k, v in edges.items() if k[1].split("_")[1] in ids}
+        return kept, edges, dict(run, kept=len(kept))
+
+    # 1. the cube from its own capture (main.ipynb cell 3)
+    cube_cams, cube_traj = _cube_scene(
+        [TUTORIAL_CUBE_POS], TUTORIAL_CUBE_FRAMES, seed=2, res=TUTORIAL_RES,
+        traj=calibration_sweep(TUTORIAL_CUBE_FRAMES, TUTORIAL_CUBE_POS))
+    gray, names, frame_cams, render_s, pre_s = _tutorial_capture(cube_cams, cube_traj, markers,
+                                                                 dev)
+    aux, _, cube_run = detect(gray, names, frame_cams)
+    del gray
+    emit("tutorial_capture", capture="cube", render_s=render_s, preprocess_s=pre_s, **cube_run)
+    t0 = time.perf_counter()
+    obj_pose_est = object_bipartite_se3sync(
+        aux,
+        noise_model_r=lambda e: 0.01 * polygon_area(e["corners"]) ** 2,
+        noise_model_t=lambda e: 0.001 * polygon_area(e["corners"]) ** 2.0,
+        edge_filter=lambda e: e["reprojected_err"] < 0.1,
+        maxiter=4, lsqr_solver="conjugate_gradient", dtype=np.float64, verbose=False)
+    object_s = time.perf_counter() - t0
+    emit("tutorial_object", markers=len(obj_pose_est), edges=len(aux), seconds=object_s)
+    if sorted(obj_pose_est, key=int) != TUTORIAL_IDS:
+        raise AssertionError(f"tutorial: the object stage recovered {len(obj_pose_est)} of "
+                             f"{len(TUTORIAL_IDS)} markers")
+
+    # 2. the room capture (cell 5), 3. the camera network (cell 7)
+    room_cams, room_traj = _cube_scene(TUTORIAL_RIG, TUTORIAL_ROOM_STEPS, seed=1,
+                                       res=TUTORIAL_RES, wander=True)
+    gray, names, frame_cams, render_s, pre_s = _tutorial_capture(room_cams, room_traj, markers,
+                                                                 dev)
+    cam_marker_edges, room_all, room_run = detect(gray, names, frame_cams)
+    emit("tutorial_capture", capture="room", render_s=render_s, preprocess_s=pre_s, **room_run)
+    edges = {k: v for k, v in cam_marker_edges.items()
+             if int(k[1].split("_")[0]) < TUTORIAL_TMAX}
+    t0 = time.perf_counter()
+    pose_est = bipartite_se3sync(
+        edges, constraints=obj_pose_est,
+        noise_model_r=lambda e: 0.001 * polygon_area(e["corners"]) ** 1.0,
+        noise_model_t=lambda e: 0.001 * polygon_area(e["corners"]) ** 2.0,
+        edge_filter=lambda e: e["reprojected_err"] < 0.05,
+        maxiter=4, lsqr_solver="conjugate_gradient", dtype=np.float32, verbose=False)
+    network_s = time.perf_counter() - t0
+    _check_packer()
+
+    # 4. ground truth (cell 9)
+    report = evaluate_calibration(room_cams, pose_est)
+    summary = report.summary()
+    emit("tutorial_network", seconds=network_s, edges=len(edges),
+         cameras=len(report.valid_cam_ids), summary=summary, report=str(report).splitlines())
+    launches = cube_run["kernel_launches"] + room_run["kernel_launches"]
+    peak = torch.cuda.max_memory_allocated()
+    batches = cube_run["batches"] + room_run["batches"]
+
+    # the first 8 room frames on the CPU (the kernels' plain versions)
+    cpu = estimate_pose_gray(gray[:8], names[:8], frame_cams[:8], device="cpu", **TUTORIAL_KW)
+    first = {k: v for k, v in room_all.items() if v["im_filename"] in set(names[:8])}
+    d_corner = max((float(np.abs(first[k]["corners"] - cpu[k]["corners"]).max())
+                    for k in cpu if k in first), default=0.0)
+    del gray
+    # the room's edge dict through the .pt interchange
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cam_marker_edges.pt")
+        save_edges(path, cam_marker_edges)
+        back = load_edges(path)
+    round_trip = list(back) == list(cam_marker_edges) and all(
+        np.array_equal(back[k]["pose"].pose(), v["pose"].pose())
+        and np.array_equal(back[k]["corners"], v["corners"])
+        and back[k]["reprojected_err"] == v["reprojected_err"]
+        and back[k]["im_filename"] == v["im_filename"] for k, v in cam_marker_edges.items())
+    emit("tutorial", seconds=time.perf_counter() - t_start, kernel_launches=launches,
+         batches=batches, max_memory_allocated=peak, cpu_frames=8,
+         detections_cpu=len(cpu), detections_card=len(first), same_keys=set(cpu) == set(first),
+         max_corner_diff_px=d_corner, save_load_identical=round_trip)
+    faults = []
+    if launches < batches:
+        faults.append(f"{launches} threshold launches for {batches} batches")
+    if not (summary["SO3_deg"]["avg"] < 1.0 and summary["E3_cm"]["avg"] < 10.0):
+        faults.append(f"camera errors {summary['SO3_deg']['avg']} deg, "
+                      f"{summary['E3_cm']['avg']} cm on average")
+    if report.missing_cam_ids:
+        faults.append(f"cameras {report.missing_cam_ids} not calibrated")
+    if set(cpu) != set(first) or not d_corner < 1e-3:
+        faults.append(f"CPU keys {set(cpu) ^ set(first)}, corners {d_corner} px apart")
+    if not round_trip:
+        faults.append("save_edges / load_edges changed the edge dict")
+    if faults:
+        raise AssertionError(f"tutorial: {faults}")
+    return launches
+
+
 def _build_native(only_present: bool = False) -> list:
     """Build the port's C modules (the edge packer, the labeler, the host
     threshold) and raise naming any that did not build; ``only_present``
@@ -1008,10 +1197,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    # the host packages the card machine offers: the port's card path needs
+    # none of them (JPEG I/O and plots are host work)
+    host_packages = {m: importlib.util.find_spec(m) is not None
+                     for m in ("cv2", "PIL", "matplotlib")}
     emit("device", kind=name, count=count, nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, host_packages=host_packages)
 
-    partial = "--threshold" in sys.argv or "--perception" in sys.argv
+    partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial"))
     t0 = time.perf_counter()
     logs = _kernels.build(["threshold"] if partial else None)
     build_s = time.perf_counter() - t0
@@ -1030,6 +1223,9 @@ def main() -> None:
     native = _build_native(only_present="--perception" in sys.argv)
     emit("build", seconds=build_s, native_seconds=time.perf_counter() - t0, native=native,
          kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
+    if "--tutorial" in sys.argv:
+        tutorial_phase(dev)
+        return
     if "--perception" in sys.argv:
         th, device_run = perception_phases(dev, ptxas)
         from vican_torch.perception import PHASES
@@ -1111,6 +1307,7 @@ def main() -> None:
     th, device_run = perception_phases(dev, ptxas)
     perception_modes(device_run)
     del device_run
+    launches_t = tutorial_phase(dev)
 
     w10 = rows["B", 10]
     kernels = [{
@@ -1125,7 +1322,7 @@ def main() -> None:
     }, {
         "name": "multi_threshold", "route": "cuda", "source": "vican_torch/csrc/threshold.cu",
         "replaces": "vican_tpu/ops/pallas/threshold.py:33",
-        "launches": th["launches"], "max_abs_err": th["max_abs_err"],
+        "launches": th["launches"], "launches_T": launches_t, "max_abs_err": th["max_abs_err"],
         "differing_bytes": th["differing_bytes"], "ms": th["ms"], "kernel_ms": th["kernel_ms"],
         "plain_ms": th["plain_ms"],
         "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],

@@ -276,3 +276,130 @@ def test_perception_modes_on_the_card_agree(cuda, pad):
     assert len(dev) > 5 and list(host) == list(dev)
     for k in dev:
         np.testing.assert_allclose(host[k]["corners"], dev[k]["corners"], rtol=0, atol=1e-3)
+
+
+def _angles(R) -> np.ndarray:
+    """Rotation angles in float64 from the antisymmetric part and the trace."""
+    R = np.asarray(R, np.float64)
+    w = np.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                  R[..., 1, 0] - R[..., 0, 1]], -1)
+    return np.arctan2(np.linalg.norm(w, axis=-1) / 2, (np.trace(R, axis1=-2, axis2=-1) - 1) / 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10.0, 1e3, 1e5])
+def test_random_langevin_on_the_card_matches_cpu_in_distribution(cuda, k):
+    """The card's and the CPU's generators give different streams: the
+    samplers are held by the angle distribution, a two-sample KS statistic
+    < 0.03 at n = 20 000, as against the JAX package on the CPU."""
+    from scipy.stats import ks_2samp
+
+    from vican_torch.ops.lie import random_langevin
+
+    n = 20_000
+    card = random_langevin(torch.Generator(device=cuda).manual_seed(0), k, (n,), device=cuda)
+    again = random_langevin(torch.Generator(device=cuda).manual_seed(0), k, (n,), device=cuda)
+    cpu = random_langevin(torch.Generator().manual_seed(0), k, (n,), device="cpu")
+    assert card.device.type == cuda.type and card.dtype == torch.float32 and card.shape == (n, 3, 3)
+    assert torch.equal(card, again)
+    stat = ks_2samp(_angles(card.cpu()), _angles(cpu)).statistic
+    assert stat < 0.03, stat
+
+
+@pytest.mark.gpu
+def test_evaluate_calibration_of_a_card_solve(cuda):
+    """A problem solved on the card and on the CPU in float64:
+    evaluate_calibration gives both the same report, translations within
+    1e-3 cm and rotations within the 0.05 deg floor of the float32 pose
+    composition (arccos of float32 rotations near the identity,
+    tests/test_evaluation.py:57-59), at the problem's noise floor."""
+    from vican_torch.evaluation import evaluate_calibration
+    from vican_torch.synthetic import make_problem
+
+    prob = make_problem(seed=3, n_cams=12, n_times=60)
+    kw = dict(constraints=prob.constraints(), noise_model_r=lambda e: 1.0,
+              noise_model_t=lambda e: 1.0, edge_filter=lambda e: True, maxiter=4,
+              dtype=np.float64, verbose=False)
+    card = evaluate_calibration(prob.cams_gt, bipgo.bipartite_se3sync(prob.edges, device=cuda,
+                                                                      **kw))
+    cpu = evaluate_calibration(prob.cams_gt, bipgo.bipartite_se3sync(prob.edges, device="cpu",
+                                                                     **kw))
+    assert card.missing_cam_ids == cpu.missing_cam_ids == []
+    assert card.valid_cam_ids == cpu.valid_cam_ids
+    np.testing.assert_allclose(card.r_err_deg, cpu.r_err_deg, rtol=0, atol=0.05)
+    np.testing.assert_allclose(card.t_err_cm, cpu.t_err_cm, rtol=0, atol=1e-3)
+    assert card.summary()["SO3_deg"]["avg"] < 0.5 and card.summary()["E3_cm"]["avg"] < 1.0
+
+
+@pytest.mark.gpu
+def test_tutorial_flow_on_the_card(cuda):
+    """examples/tutorial.py's flow at its --quick size from frames rendered
+    on the card (no files, no OpenCV): the tutorial's preprocess on the
+    host, detection with the threshold kernel, the object and network
+    stages, cell 9's evaluation; tests/test_tutorial.py's bars."""
+    from vican_torch.evaluation import evaluate_calibration
+    from vican_torch.ops.shoelace import polygon_area
+    from vican_torch.perception import host_preprocess
+    from vican_torch.synthetic import _cube_scene, calibration_sweep
+
+    markers = render.make_cube_markers()
+    ids = {str(i) for i in range(24)}
+    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
+              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+              batch_size=32, verbose=False)
+
+    def detect(cams, traj):
+        frames, names, frame_cams = render.render_frames(cams, traj, markers, marker_size=0.138,
+                                                         device=cuda)
+        gray = host_preprocess(frames.cpu().numpy(), -150.0, 120.0)
+        before = multi_threshold.launches
+        edges = estimate_pose_gray(gray, names, frame_cams, **kw)
+        assert multi_threshold.launches == before + -(-len(names) // 32)
+        return {k: v for k, v in edges.items() if k[1].split("_")[1] in ids}
+
+    cube_cams, cube_traj = _cube_scene([(1.1, 0.2, 1.1)], 24, seed=2, res=(960, 540),
+                                       traj=calibration_sweep(24, (1.1, 0.2, 1.1)))
+    obj = bipgo.object_bipartite_se3sync(
+        detect(cube_cams, cube_traj),
+        noise_model_r=lambda e: 0.01 * polygon_area(e["corners"]) ** 2,
+        noise_model_t=lambda e: 0.001 * polygon_area(e["corners"]) ** 2.0,
+        edge_filter=lambda e: e["reprojected_err"] < 0.1, maxiter=4, dtype=np.float64,
+        verbose=False, device=cuda)
+    assert sorted(obj, key=int) == sorted(ids, key=int)
+    cams, traj = _cube_scene([(3, 0, 1.2), (0, 3, 1.5), (-3, 0, 1.0), (0, -3, 1.3)], 16, seed=1,
+                             res=(960, 540), wander=True)
+    est = bipgo.bipartite_se3sync(
+        detect(cams, traj), constraints=obj,
+        noise_model_r=lambda e: 0.001 * polygon_area(e["corners"]) ** 1.0,
+        noise_model_t=lambda e: 0.001 * polygon_area(e["corners"]) ** 2.0,
+        edge_filter=lambda e: e["reprojected_err"] < 0.05, maxiter=4, dtype=np.float32,
+        verbose=False, device=cuda)
+    s = evaluate_calibration(cams, est).summary()
+    assert s["missing"] == []
+    assert s["SO3_deg"]["avg"] < 1.0 and s["E3_cm"]["avg"] < 10.0, s
+
+
+@pytest.mark.gpu
+def test_detect_and_draw_on_the_card(cuda, tmp_path, capsys):
+    """detect_and_draw on the card launches the threshold kernel once and
+    draws what the CPU run draws (it needs OpenCV to read the file)."""
+    cv = pytest.importorskip("cv2")
+    from vican_torch.plot import detect_and_draw
+
+    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
+    cams = {"0": Camera(id="0", intrinsics=K, distortion=np.zeros(12),
+                        extrinsics=render.look_at((2.4, 0.3, 1.3), (0, 0, 1.0)),
+                        resolution_x=640, resolution_y=360)}
+    frames, _, _ = render.render_frames(cams, render.cube_trajectory(1, seed=5),
+                                        render.make_cube_markers(), marker_size=0.138,
+                                        device=cuda)
+    path = str(tmp_path / "frame.png")
+    cv.imwrite(path, frames[0].cpu().numpy())
+    before = multi_threshold.launches
+    card = detect_and_draw(path, "DICT_4X4_1000", brightness=-150, contrast=120, device=cuda)
+    card_ids = capsys.readouterr().out.strip().splitlines()[-1]
+    assert multi_threshold.launches == before + 1
+    cpu = detect_and_draw(path, "DICT_4X4_1000", brightness=-150, contrast=120, device="cpu")
+    assert capsys.readouterr().out.strip().splitlines()[-1] == card_ids
+    assert len(eval(card_ids)) >= 4
+    np.testing.assert_array_equal(card, cpu)

@@ -1,10 +1,13 @@
 """The port stands alone: importing it, its solver, its perception, its
-dataset loaders, building its C modules and importing the chip smoke test
-pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
+dataset loaders, its evaluation, serialization and plot modules, every
+member of its lazy ``__all__``, building its C modules and importing the
+chip smoke test pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
 since this test process has both loaded)."""
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,7 +23,10 @@ def test_port_imports_neither_jax_nor_vican_tpu():
         "assert vican_torch._native.get_fastccl() is not None\n"
         "assert vican_torch._native.get_fastthresh() is not None\n"
         "import vican_torch.perception, vican_torch.cam, vican_torch.render\n"
-        "import vican_torch.dataset\n"
+        "import vican_torch.dataset, vican_torch.evaluation, vican_torch.serialization\n"
+        "import vican_torch.plot, vican_torch.geometry, vican_torch.ops.lie\n"
+        "for name in vican_torch.__all__:\n"
+        "    getattr(vican_torch, name)\n"
         "import vican_torch.ops.detect, vican_torch.ops.pnp, vican_torch.ops.threshold\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -33,3 +39,19 @@ def test_port_imports_neither_jax_nor_vican_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+def test_lazy_all_lists_the_jax_package_modules_the_port_has():
+    """``vican_torch.__all__`` is ``vican_tpu.__all__`` without the modules
+    not ported yet (``parallel``, ROADMAP section 1), each a module that a
+    plain attribute access imports."""
+    import importlib
+
+    import vican_torch
+    import vican_tpu
+
+    assert vican_torch.__all__ == [m for m in vican_tpu.__all__ if m != "parallel"]
+    for name in vican_torch.__all__:
+        assert getattr(vican_torch, name) is importlib.import_module(f"vican_torch.{name}")
+    with pytest.raises(AttributeError):
+        vican_torch.parallel

@@ -1,11 +1,10 @@
 """Host-side SO(3)/SE(3) geometry: the pose types that cross the API.
 
-Plain NumPy, API-compatible with the reference (vican/geometry.py) and with
-``vican_tpu.geometry``, of which this module is the port's own copy of the
-pose type and the gauge/distance helpers: edge dicts built with either
-package feed the other, since both packers read a pose through
-``.R()``/``.t()``.  Batched device math lives in
-:mod:`vican_torch.ops.lie`.
+Plain NumPy (and scipy for :func:`langevin`), API-compatible with the
+reference (vican/geometry.py) and with ``vican_tpu.geometry``, of which
+this module is the port's own copy: edge dicts built with either package
+feed the other, since both packers read a pose through ``.R()``/``.t()``.
+Batched device math lives in :mod:`vican_torch.ops.lie`.
 """
 from __future__ import annotations
 
@@ -14,10 +13,16 @@ from typing import Iterable
 import numpy as np
 
 __all__ = [
+    "langevin",
+    "rotx",
+    "roty",
+    "rotz",
     "rodrigues",
     "rad2deg",
+    "deg2rad",
     "angle",
     "distance_SO3",
+    "project_SO3",
     "SE3",
     "optimize_gauge_SO3",
     "optimize_gauge_SE3",
@@ -36,9 +41,50 @@ def rodrigues(vec: np.ndarray) -> np.ndarray:
     return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
 
 
+def langevin(k: float, rng: np.random.Generator | None = None) -> np.ndarray:
+    """Sample from the isotropic Langevin distribution on SO(3)
+    (geometry.py:13-30): a random axis (isotropic Gaussian, normalized)
+    scaled by a von Mises magnitude with concentration ``k``, through
+    Rodrigues.  ``rng``: the source of randomness (the global NumPy RNG by
+    default, as in the reference); a generator draws the same samples as
+    ``vican_tpu.geometry.langevin`` with the same generator."""
+    from scipy.stats import vonmises
+
+    if rng is None:
+        vec = np.random.normal(0.0, 1.0, size=(3,))
+        mag = vonmises.rvs(k)
+    else:
+        vec = rng.normal(0.0, 1.0, size=(3,))
+        mag = vonmises.rvs(k, random_state=rng)
+    return rodrigues(mag * vec / np.linalg.norm(vec))
+
+
+def rotx(theta: float) -> np.ndarray:
+    """SO(3) rotation around the x-axis (radians)."""
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], dtype=np.float32)
+
+
+def roty(theta: float) -> np.ndarray:
+    """SO(3) rotation around the y-axis (radians)."""
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=np.float32)
+
+
+def rotz(theta: float) -> np.ndarray:
+    """SO(3) rotation around the z-axis (radians)."""
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], dtype=np.float32)
+
+
 def rad2deg(rad: float) -> float:
     """Radians to degrees."""
     return rad * 180.0 / np.pi
+
+
+def deg2rad(deg: float) -> float:
+    """Degrees to radians."""
+    return deg * np.pi / 180.0
 
 
 def angle(r: np.ndarray) -> float:
@@ -51,6 +97,13 @@ def distance_SO3(r1: np.ndarray, r2: np.ndarray) -> float:
     """Geodesic angle in degrees between two rotations (geometry.py:154-172)."""
     assert r1.shape == (3, 3) and r2.shape == (3, 3)
     return angle(r1.T @ r2)
+
+
+def project_SO3(x: np.ndarray) -> np.ndarray:
+    """Orthogonal projection of a 3x3 matrix onto SO(3) (geometry.py:175-191):
+    SVD projection with the determinant fixed to +1."""
+    u, _, vh = np.linalg.svd(x)
+    return u @ np.diag([1.0, 1.0, np.linalg.det(u @ vh)]) @ vh
 
 
 class SE3:

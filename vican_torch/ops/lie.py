@@ -1,9 +1,10 @@
 """Batched SO(3) ops on tensors (any leading batch dimensions).
 
-The port of ``vican_tpu.ops.lie``'s solver and PnP subset: the skew matrix,
-Rodrigues and its inverse, quaternion decoding, the one-sided Jacobi 3x3
-SVD with its SO(3) projection, rotation angles, and the Procrustes gauge.
-Every function runs on the device of its input.
+The port of ``vican_tpu.ops.lie``: the skew matrix, Rodrigues and its
+inverse, quaternion decoding, the one-sided Jacobi 3x3 SVD with its SO(3)
+projection, rotation angles, rigid-transform algebra, the Procrustes
+gauges and the batched Langevin sampler.  Every function runs on the
+device of its input (:func:`random_langevin` on the device it is given).
 """
 from __future__ import annotations
 
@@ -20,7 +21,12 @@ __all__ = [
     "project_so3",
     "angle_deg",
     "distance_so3",
+    "se3_compose",
+    "se3_inverse",
+    "se3_apply",
+    "random_langevin",
     "gauge_procrustes_so3",
+    "gauge_procrustes_se3",
 ]
 
 
@@ -236,6 +242,68 @@ def distance_so3(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     return angle_deg(torch.matmul(r1.transpose(-1, -2), r2))
 
 
+def se3_compose(Ra, ta, Rb, tb):
+    """Compose (Ra, ta) . (Rb, tb) -> (Ra Rb, Ra tb + ta), batched."""
+    return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def se3_inverse(R, t):
+    """Inverse of batched rigid transforms."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
+
+
+def se3_apply(R, t, x):
+    """Apply batched rigid transforms to points ``(..., 3)``."""
+    return torch.einsum("...ij,...j->...i", R, x) + t
+
+
+def random_langevin(generator: torch.Generator, k: float, shape=(), device=None) -> torch.Tensor:
+    """Batched isotropic-Langevin SO(3) samples (geometry.py:13-30 model),
+    float32 ``shape + (3, 3)`` on ``device`` (``None``: the CUDA card),
+    drawn from ``generator`` (a generator of that device).
+
+    Axis ~ isotropic Gaussian (normalized), magnitude ~ von Mises(``k``) by
+    :func:`_von_mises`, through Rodrigues; the algorithm of
+    ``vican_tpu.ops.lie.random_langevin``, whose PRNG stream a torch
+    generator cannot reproduce: the two agree in distribution.  The sample
+    is drawn in float64: in float32 the sampler's ``r - f`` and
+    ``arccos(f)`` lose the angle's low digits at large ``k`` (at k = 1e5
+    the angles fall on ~75 levels)."""
+    from ..utils import resolve_device
+
+    dev = resolve_device(device)
+    shape = tuple(shape)
+    axis = torch.randn(shape + (3,), generator=generator, device=dev, dtype=torch.float64)
+    axis = axis / torch.clamp_min(torch.linalg.vector_norm(axis, dim=-1, keepdim=True), 1e-12)
+    mag = _von_mises(generator, torch.tensor(k, dtype=torch.float64, device=dev), shape)
+    return rodrigues(axis * mag[..., None]).to(torch.float32)
+
+
+def _von_mises(generator: torch.Generator, kappa: torch.Tensor, shape=()) -> torch.Tensor:
+    """Best-Fisher von Mises sampler with a fixed proposal budget, on the
+    device and in the dtype of ``kappa``.
+
+    Draws ROUNDS proposals per sample at once and keeps the first accepted
+    one (the envelope accepts ~0.66 of proposals, so 16 rounds fail with
+    probability < 1e-7; a failed sample keeps the first proposal, as
+    ``jnp.argmax`` of an all-false column does in the JAX package).  No
+    loop depends on the data."""
+    ROUNDS = 16
+    tau = 1.0 + torch.sqrt(1.0 + 4.0 * kappa * kappa)
+    rho = (tau - torch.sqrt(2.0 * tau)) / (2.0 * kappa)
+    r = (1.0 + rho * rho) / (2.0 * rho)
+    u1, u2, u3 = torch.rand((3, ROUNDS) + tuple(shape), generator=generator,
+                            device=kappa.device, dtype=kappa.dtype)
+    z = torch.cos(math.pi * u1)
+    f = (1.0 + r * z) / (r + z)
+    c = kappa * (r - f)
+    accept = (c * (2.0 - c) - u2 > 0) | (torch.log(c / torch.clamp_min(u2, 1e-30)) + 1.0 - c >= 0)
+    theta = torch.sign(u3 - 0.5) * torch.arccos(torch.clamp(f, -1.0, 1.0))
+    first = torch.argmax(accept.to(torch.uint8), dim=0)
+    return torch.take_along_dim(theta, first[None], dim=0)[0]
+
+
 def gauge_procrustes_so3(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     """Rotation aligning stacks ``Ra ~ Rb @ g`` (geometry.py:264-291).
 
@@ -243,3 +311,14 @@ def gauge_procrustes_so3(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     """
     acc = torch.sum(torch.matmul(Ra.transpose(-1, -2), Rb), dim=0)
     return project_so3(acc.T)
+
+
+def gauge_procrustes_se3(Ra, ta, Rb, tb):
+    """SE(3) gauge aligning ``(Ra, ta) ~ (Rb, tb) @ g`` (geometry.py:294-325).
+
+    Inputs are (N, 3, 3) rotation stacks and (N, 3) translation stacks.
+    Returns ``(g_R, g_t)``.
+    """
+    g_r = gauge_procrustes_so3(Ra, Rb)
+    g_t = torch.mean(torch.einsum("nji,nj->ni", Rb, ta - tb), dim=0)
+    return g_r, g_t

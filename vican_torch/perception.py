@@ -138,10 +138,9 @@ def host_preprocess(images: np.ndarray, brightness: float, contrast: float) -> n
     """Reference contrast/brightness + BGR grayscale, on host (uint8 out).
 
     Bit-matches cam.py:137-145: int16 scale, clip, uint8 truncation, then
-    OpenCV BGR2GRAY.
+    OpenCV BGR2GRAY for ``(N, H, W, 3)`` BGR input; gray ``(N, H, W)``
+    input needs no OpenCV.
     """
-    import cv2 as cv
-
     if contrast == 0 and brightness == 0:
         # the transform is the identity on uint8 (x + 0, clip, truncate);
         # skipping the float32 round trip saves ~12 ms/image on one core
@@ -153,6 +152,8 @@ def host_preprocess(images: np.ndarray, brightness: float, contrast: float) -> n
         x = x + brightness
         x = np.clip(x, 0.0, 255.0).astype(np.uint8)
     if x.ndim == 4 and x.shape[-1] == 3:
+        import cv2 as cv
+
         x = np.stack([cv.cvtColor(im, cv.COLOR_BGR2GRAY) for im in x])
     return x
 
@@ -708,18 +709,14 @@ class _Program:
         return D_.dedup_and_compact(corners.reshape(B, Q, 4, 2), ids.reshape(B, Q),
                                     ok.reshape(B, Q), area, p)
 
-    def run(self, gray: np.ndarray | torch.Tensor, Ks: np.ndarray, dists: np.ndarray,
-            timer: PhaseTimer) -> np.ndarray:
-        """One batch: uint8 gray ``(B, H, W)`` -> the packed ``(B*D, 23)``
-        result on the host."""
+    def detect_frames(self, gray: np.ndarray | torch.Tensor, g: torch.Tensor, timer: PhaseTimer):
+        """Threshold, host candidates and the detect step of one batch:
+        ``gray`` uint8 ``(B, H, W)`` as given, ``g`` the same frames on the
+        device.  Returns the :class:`~vican_torch.ops.detect.Detections`."""
         from .ops.threshold import multi_threshold
 
-        dev, p = self.device, self.params
+        p = self.params
         H, W = gray.shape[1:]
-        with timer.phase("upload"):
-            g = torch.as_tensor(gray).to(dev).contiguous()
-            Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
-            dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
         if self.mode == "device":
             with timer.phase("threshold kernel"):
                 packed = multi_threshold(g, p.win_sizes, p.thresh_const)
@@ -732,7 +729,18 @@ class _Program:
         with timer.phase("host candidates"):
             quads, valid, areas = quads_from_packed_masks(packed, H, W, p)
         with timer.phase("detect program"):
-            det = self.detect(g, quads, valid, areas)
+            return self.detect(g, quads, valid, areas)
+
+    def run(self, gray: np.ndarray | torch.Tensor, Ks: np.ndarray, dists: np.ndarray,
+            timer: PhaseTimer) -> np.ndarray:
+        """One batch: uint8 gray ``(B, H, W)`` -> the packed ``(B*D, 23)``
+        result on the host."""
+        dev = self.device
+        with timer.phase("upload"):
+            g = torch.as_tensor(gray).to(dev).contiguous()
+            Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
+            dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
+        det = self.detect_frames(gray, g, timer)
         with timer.phase("PnP"):
             out = _pnp_block(det, Ks_d, dists_d, self.marker_size, self.lm_iters,
                              self.pnp_method).cpu().numpy()

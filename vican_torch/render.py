@@ -10,19 +10,26 @@ its own frames on the card:
 - :func:`render_image`  -- one camera view, uint8 gray ``(H, W)``;
 - :func:`render_frames` -- every (timestep, camera) view of a trajectory as
   one uint8 batch, the loop of ``vican_tpu.render.render_dataset`` without
-  the JPEG write.
+  the JPEG write;
+- :func:`render_dataset` -- the Dataset-layout directory of JPEGs (OpenCV
+  writes them, imported only there), the frames rendered on ``device``.
+
+:func:`boxes_intersect`, :func:`cams_seeing` and :func:`cube_pose_candidate`
+are the scene generators' host-side placement tests, copied as they are.
 
 Marker corners are projected through :func:`vican_torch.ops.pnp.
 project_points` in float64 (the full 12-coefficient distortion model); each
 marker is an inverse bilinear warp of its bitmap over its projected
-bounding box only, composited in painter's order.  The warp reproduces
-``cv.warpPerspective``'s fixed-point scheme (source coordinates rounded to
-1/32 pixel, 15-bit bilinear weights, rounded to uint8), but not its exact
-arithmetic: a few edge pixels differ by one grey level
+bounding box only, composited in painter's order.  The warp follows the
+float32 scheme of OpenCV 5.0's ``cv.warpPerspective`` for 8-bit images, but
+not its exact arithmetic: a few edge pixels differ by one grey level
 (tests/test_torch_perception.py states the agreement).  Occluder faces are
 filled without anti-aliasing.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -37,7 +44,11 @@ __all__ = [
     "marker_tiles",
     "render_image",
     "render_frames",
+    "render_dataset",
     "cube_trajectory",
+    "boxes_intersect",
+    "cams_seeing",
+    "cube_pose_candidate",
 ]
 
 
@@ -95,6 +106,82 @@ def look_at(position, target, up=(0, 0, 1.0)) -> SE3:
     return SE3(R=np.stack([right, down, fwd], axis=1), t=position)
 
 
+def boxes_intersect(c_a, half_a, R_a, c_b, half_b, R_b) -> bool:
+    """Oriented-box overlap by the separating-axis theorem, over 15
+    candidate axes (3 + 3 face normals, 9 edge cross products); the
+    reference tests mesh overlap in Blender (render.py:164-205)."""
+    c_a, c_b = np.asarray(c_a, float), np.asarray(c_b, float)
+    half_a, half_b = np.asarray(half_a, float), np.asarray(half_b, float)
+    R_a, R_b = np.asarray(R_a, float), np.asarray(R_b, float)
+    d = c_b - c_a
+    axes = [R_a[:, i] for i in range(3)] + [R_b[:, i] for i in range(3)]
+    for i in range(3):
+        for j in range(3):
+            cr = np.cross(R_a[:, i], R_b[:, j])
+            n = np.linalg.norm(cr)
+            if n > 1e-9:
+                axes.append(cr / n)
+    for ax in axes:
+        ra = np.sum(half_a * np.abs(ax @ R_a))
+        rb = np.sum(half_b * np.abs(ax @ R_b))
+        if abs(ax @ d) > ra + rb:
+            return False
+    return True
+
+
+def cams_seeing(cams: dict, point, distance_cutoff: float = 7.0) -> list:
+    """Camera ids whose view contains ``point``: in front of the camera,
+    projecting inside the image, closer than ``distance_cutoff`` (the
+    reference's visibility test, render.py:348-371, 374-390)."""
+    point = np.asarray(point, float)
+    seen = []
+    for cid, cam in cams.items():
+        pc = cam.extrinsics.inv().apply(point.reshape(3, 1)).ravel()
+        if pc[2] <= 0.05 or np.linalg.norm(pc) > distance_cutoff:
+            continue
+        K = np.asarray(cam.intrinsics, float)
+        u = K[0, 0] * pc[0] / pc[2] + K[0, 2]
+        v = K[1, 1] * pc[1] / pc[2] + K[1, 2]
+        if 0 <= u < cam.resolution_x and 0 <= v < cam.resolution_y:
+            seen.append(cid)
+    return seen
+
+
+def cube_pose_candidate(
+    rng: np.random.Generator,
+    cams: dict,
+    region_low,
+    region_high,
+    *,
+    cube_size: float = 0.575,
+    keep_out=(),
+    min_views: int = 2,
+    distance_cutoff: float = 7.0,
+    max_tries: int = 200,
+) -> SE3 | None:
+    """An accepted object pose, as the reference's scene generators draw
+    it (render.py:297-371): uniform position in ``[region_low,
+    region_high]`` and uniform random rotation, redrawn until the cube
+    avoids every keep-out box (``(center, half_sizes)`` or ``(center,
+    half_sizes, R)``) and its center is in view of at least ``min_views``
+    cameras within ``distance_cutoff``.  None after ``max_tries`` draws."""
+    lo = np.asarray(region_low, float)
+    hi = np.asarray(region_high, float)
+    half = np.full(3, cube_size / 2.0)
+    for _ in range(max_tries):
+        pos = rng.uniform(lo, hi)
+        v = rng.normal(size=3)
+        v = v / max(np.linalg.norm(v), 1e-12) * rng.uniform(0.0, np.pi)
+        R = rodrigues(v)
+        if any(boxes_intersect(pos, half, R, box[0], box[1],
+                               box[2] if len(box) > 2 else np.eye(3)) for box in keep_out):
+            continue
+        if len(cams_seeing(cams, pos, distance_cutoff)) < min_views:
+            continue
+        return SE3(R=R, t=pos)
+    return None
+
+
 def marker_tiles(marker_ids, aruco: str = "DICT_4X4_1000", marker_px: int = 120) -> dict:
     """``{marker_id: uint8 bitmap}``: the dictionary pattern inside a black
     border cell, each cell ``marker_px // (n + 2)`` pixels
@@ -131,39 +218,31 @@ def cube_trajectory(n_frames: int, seed: int, target=(0.0, 0.0, 1.0),
     return traj
 
 
-_INTER_BITS = 5  # cv.warpPerspective: source coordinates in 1/32 pixel
-_COEF_BITS = 15  # and bilinear weights in 1/32768
-
-
 def _warp_tile(tile: torch.Tensor, Hinv: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
     """Inverse bilinear warp of ``tile (N, N)`` uint8 at destination pixels
-    ``(xs, ys)``, zero outside the tile, in cv.warpPerspective's fixed point:
-    uint8 values as float32."""
+    ``(xs, ys)``, zero outside the tile, as OpenCV 5.0's
+    ``cv.warpPerspective`` computes it for 8-bit images: the inverse
+    homography in float32, exact float32 bilinear weights, rounded to the
+    nearest grey level (uint8 values as float32)."""
     N = tile.shape[0]
-    X = Hinv[0, 0] * xs + Hinv[0, 1] * ys + Hinv[0, 2]
-    Y = Hinv[1, 0] * xs + Hinv[1, 1] * ys + Hinv[1, 2]
-    Z = Hinv[2, 0] * xs + Hinv[2, 1] * ys + Hinv[2, 2]
-    scale = float(1 << _INTER_BITS)
-    Zs = torch.where(Z != 0, scale / Z, torch.zeros_like(Z))
-    qx = torch.round(torch.clamp(X * Zs, -2**31, 2**31 - 1)).long()
-    qy = torch.round(torch.clamp(Y * Zs, -2**31, 2**31 - 1)).long()
-    x0, y0 = qx >> _INTER_BITS, qy >> _INTER_BITS
-    fx = (qx & ((1 << _INTER_BITS) - 1)).double() / scale
-    fy = (qy & ((1 << _INTER_BITS) - 1)).double() / scale
-    one = float(1 << _COEF_BITS)
-    w = torch.stack([torch.round((1 - fy) * (1 - fx) * one), torch.round((1 - fy) * fx * one),
-                     torch.round(fy * (1 - fx) * one), torch.round(fy * fx * one)]).long()
-    # the weights of a sample sum to 2^15: the largest absorbs the rounding
-    fix = (1 << _COEF_BITS) - w.sum(0)
-    w.scatter_add_(0, w.argmax(0, keepdim=True), fix[None])
-    acc = torch.zeros_like(qx)
-    t = tile.long()
-    for k, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
-        yy, xx = y0 + dy, x0 + dx
+    M = Hinv.to(torch.float32)
+    x, y = xs.to(torch.float32), ys.to(torch.float32)
+    w = M[2, 0] * x + M[2, 1] * y + M[2, 2]
+    sx = (M[0, 0] * x + M[0, 1] * y + M[0, 2]) / w
+    sy = (M[1, 0] * x + M[1, 1] * y + M[1, 2]) / w
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    a, b = sx - fx, sy - fy
+    x0, y0 = fx.long(), fy.long()
+    t = tile.to(torch.float32)
+
+    def at(yy, xx):
         inside = (yy >= 0) & (yy < N) & (xx >= 0) & (xx < N)
-        v = t[yy.clamp(0, N - 1), xx.clamp(0, N - 1)] * inside
-        acc += v * w[k]
-    return ((acc + (1 << (_COEF_BITS - 1))) >> _COEF_BITS).clamp(0, 255).to(torch.float32)
+        return t[yy.clamp(0, N - 1), xx.clamp(0, N - 1)] * inside
+
+    p00, p01, p10, p11 = at(y0, x0), at(y0, x0 + 1), at(y0 + 1, x0), at(y0 + 1, x0 + 1)
+    top = p00 + a * (p01 - p00)
+    bottom = p10 + a * (p11 - p10)
+    return torch.round(top + b * (bottom - top)).clamp(0, 255)
 
 
 def _fill_convex(img: torch.Tensor, poly: np.ndarray, shade: int) -> None:
@@ -298,3 +377,95 @@ def render_frames(cams: dict, traj: dict, markers: dict, aruco: str = "DICT_4X4_
             names.append(f"{t}/{cid}.jpg")
             frame_cams.append(cam)
     return torch.stack(frames), names, frame_cams
+
+
+def render_dataset(
+    root: str,
+    cams: dict,
+    obj_traj: dict,
+    marker_poses: dict,
+    aruco: str = "DICT_4X4_1000",
+    marker_size: float = 0.48 * 0.575 / 2,
+    marker_px: int = 120,
+    jpeg_quality: int = 95,
+    occluders=(),
+    shard: tuple | None = None,
+    resume: bool = False,
+    only_visible_cams: bool = False,
+    distance_cutoff: float = 7.0,
+    device=None,
+) -> None:
+    """Write a Dataset-layout directory (vican_tpu/render.py:300-410):
+    ``cameras.json``, ``object_pose_<core>.json`` and ``<t>/<cam_id>.jpg``.
+
+    ``cams``: {cam_id: Camera}; ``obj_traj``: {t: SE3 object->world};
+    ``marker_poses``: {marker_id: SE3 marker->object}; ``occluders``:
+    ``(SE3, half_sizes)`` boxes for :func:`render_image`.  Frames are
+    rendered on ``device`` (``None``: the CUDA card) and written by OpenCV
+    as 3-channel JPEGs at ``jpeg_quality``.
+
+    - ``shard=(core_id, num_cores)``: only the timesteps with ``index %
+      num_cores == core_id``, their poses in ``object_pose_<core_id>.json``
+      (the reference's render farm, render.py:491-519);
+    - ``resume=True``: reload an existing pose file and skip the timesteps
+      whose images exist (render.py:506-515);
+    - ``only_visible_cams``: render only the cameras that see the object
+      center (render.py:374-390).
+
+    The pose file is flushed every 25 timesteps, so a killed process
+    resumes from the last flush.
+    """
+    import cv2 as cv
+
+    os.makedirs(root, exist_ok=True)
+    tiles = marker_tiles(list(marker_poses), aruco, marker_px)
+
+    cams_json = {}
+    for cid, cam in cams.items():
+        K = np.asarray(cam.intrinsics, float)
+        cams_json[cid] = {
+            "fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2],
+            "distortion": (
+                np.zeros(12) if cam.distortion is None
+                else np.atleast_1d(np.asarray(cam.distortion, float))
+            ).tolist(),
+            "R": np.asarray(cam.extrinsics.R(), float).tolist(),
+            "t": np.asarray(cam.extrinsics.t(), float).tolist(),
+            "resolution_x": cam.resolution_x,
+            "resolution_y": cam.resolution_y,
+        }
+    with open(os.path.join(root, "cameras.json"), "w") as f:
+        json.dump(cams_json, f)
+
+    core_id, num_cores = shard if shard is not None else (0, 1)
+    pose_file = os.path.join(root, f"object_pose_{core_id}.json")
+    obj_json = {}
+    if resume and os.path.exists(pose_file):
+        with open(pose_file) as f:
+            obj_json = json.load(f)
+
+    for i, (t, obj_pose) in enumerate(obj_traj.items()):
+        if i % num_cores != core_id:
+            continue
+        visible = (cams_seeing(cams, obj_pose.t(), distance_cutoff)
+                   if only_visible_cams else list(cams))
+        tdir = os.path.join(root, str(t))
+        if resume and str(t) in obj_json and all(
+                os.path.exists(os.path.join(tdir, f"{cid}.jpg")) for cid in visible):
+            continue
+        obj_json[str(t)] = {
+            "R": np.asarray(obj_pose.R(), float).tolist(),
+            "t": np.asarray(obj_pose.t(), float).tolist(),
+        }
+        marker_world = {m: obj_pose @ mp for m, mp in marker_poses.items()}
+        os.makedirs(tdir, exist_ok=True)
+        for cid in visible:
+            gray = render_image(cams[cid], marker_world, tiles, marker_size,
+                                occluders=occluders, device=device).cpu().numpy()
+            cv.imwrite(os.path.join(tdir, f"{cid}.jpg"), np.repeat(gray[..., None], 3, axis=-1),
+                       [cv.IMWRITE_JPEG_QUALITY, jpeg_quality])
+        if len(obj_json) % 25 == 0:
+            with open(pose_file, "w") as f:
+                json.dump(obj_json, f)
+    with open(pose_file, "w") as f:
+        json.dump(obj_json, f)

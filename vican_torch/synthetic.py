@@ -1,9 +1,11 @@
-"""Synthetic calibration problems at benchmark scale (host NumPy).
+"""Synthetic calibration problems and synthetic captures (host NumPy).
 
-The port's own copy of ``vican_tpu.synthetic.make_problem_arrays``: the same
-seed gives the same ground truth and the same edge dict in both packages,
-so a problem built here can be checked against numbers the JAX package
-produced.  Edges follow the reference schema
+The port's own copy of ``vican_tpu.synthetic``: :func:`make_problem` and
+:func:`make_problem_arrays` draw from the seed as the JAX package does, so
+the same seed gives the same ground truth and the same edge dict in both
+packages and a problem built here can be checked against numbers the JAX
+package produced; :func:`calibration_sweep` and :func:`render_cube_scene`
+are the tutorial's synthetic captures.  Edges follow the reference schema
 ``{(cam_id, "<t>_<marker>"): {"pose": SE3, "corners", "reprojected_err",
 "im_filename"}}`` (vican/cam.py:120-124); noise is Langevin-like rotation
 noise plus Gaussian translation noise (vican/geometry.py:13-30).
@@ -12,9 +14,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from .geometry import SE3
+from .geometry import SE3, rodrigues
 
-__all__ = ["SyntheticProblem", "make_problem_arrays"]
+__all__ = ["SyntheticProblem", "make_problem", "make_problem_arrays",
+           "render_cube_scene", "calibration_sweep"]
 
 
 class SyntheticProblem:
@@ -29,6 +32,78 @@ class SyntheticProblem:
     def constraints(self) -> dict:
         """Marker constraints in the form bipartite_se3sync expects."""
         return dict(self.markers_gt)
+
+
+def _random_rotation(rng: np.random.Generator) -> np.ndarray:
+    v = rng.normal(size=3)
+    v = v / np.linalg.norm(v) * rng.uniform(0.0, np.pi)
+    return rodrigues(v)
+
+
+def _langevin_noise(rng: np.random.Generator, kappa: float) -> np.ndarray:
+    """Small random rotation with Langevin-like concentration ``kappa``:
+    a normal magnitude of deviation 1/sqrt(kappa), the large-kappa limit of
+    the von Mises magnitude."""
+    v = rng.normal(size=3)
+    mag = rng.normal(0.0, 1.0 / np.sqrt(max(kappa, 1e-9)))
+    return rodrigues(v / np.linalg.norm(v) * mag)
+
+
+def make_problem(
+    seed: int = 0,
+    n_cams: int = 10,
+    n_times: int = 100,
+    n_markers: int = 8,
+    p_obs: float = 0.35,
+    kappa_r: float = 1e4,
+    sigma_t: float = 1e-3,
+    scene_radius: float = 5.0,
+    marker_radius: float = 0.3,
+) -> SyntheticProblem:
+    """A random camera network observing a moving marker object.
+
+    Every (camera, time, marker) triple is observed independently with
+    probability ``p_obs``; each camera and timestep is guaranteed at least one
+    observation so the graph is connected with high probability.
+    """
+    rng = np.random.default_rng(seed)
+
+    def pose(radius):
+        return SE3(R=_random_rotation(rng), t=rng.uniform(-radius, radius, size=3))
+
+    cams_gt = {str(c): pose(scene_radius) for c in range(n_cams)}
+    markers_gt = {str(m): pose(marker_radius) for m in range(n_markers)}
+    obj_gt = {str(t): pose(scene_radius) for t in range(n_times)}
+
+    obs = rng.random((n_cams, n_times, n_markers)) < p_obs
+    # connectivity: every camera and every timestep sees something
+    for ci in range(n_cams):
+        if not obs[ci].any():
+            obs[ci, rng.integers(n_times), rng.integers(n_markers)] = True
+    for ti in range(n_times):
+        if not obs[:, ti].any():
+            obs[rng.integers(n_cams), ti, rng.integers(n_markers)] = True
+
+    edges = {}
+    for ci, c in enumerate(cams_gt):
+        cam_inv = cams_gt[c].inv()
+        for ti, t in enumerate(obj_gt):
+            marker_world_base = cam_inv @ obj_gt[t]
+            for m in range(n_markers):
+                if not obs[ci, ti, m]:
+                    continue
+                gt_pose = marker_world_base @ markers_gt[str(m)]
+                R = _langevin_noise(rng, kappa_r) @ gt_pose.R()
+                tvec = gt_pose.t() + rng.normal(0.0, sigma_t, size=3)
+                corners = rng.uniform(0, 1280, size=(4, 2))
+                edges[(c, f"{t}_{m}")] = {
+                    "pose": SE3(R=R, t=tvec),
+                    "corners": corners,
+                    "reprojected_err": float(rng.uniform(0.0, 0.04)),
+                    "im_filename": f"{t}/{c}.jpg",
+                }
+
+    return SyntheticProblem(cams_gt, obj_gt, markers_gt, edges)
 
 
 def _random_rotations(rng: np.random.Generator, n: int, max_angle=np.pi) -> np.ndarray:
@@ -114,3 +189,108 @@ def make_problem_arrays(
     markers_gt = {str(m): SE3(R=Rm[m], t=tm[m]) for m in range(n_markers)}
     obj_gt = {str(t): SE3(R=Ro[t], t=to[t]) for t in range(n_times)}
     return SyntheticProblem(cams_gt, obj_gt, markers_gt, edges)
+
+
+def _rot_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Rotation matrix taking unit vector ``a`` onto unit vector ``b``."""
+    v = np.cross(a, b)
+    c = float(np.dot(a, b))
+    if np.linalg.norm(v) < 1e-12:
+        if c > 0:
+            return np.eye(3)
+        # antiparallel: rotate pi about any axis perpendicular to a
+        p = np.array([1.0, 0.0, 0.0]) if abs(a[0]) < 0.9 else np.array([0.0, 1.0, 0.0])
+        axis = np.cross(a, p)
+        return rodrigues(axis / np.linalg.norm(axis) * np.pi)
+    axis = v / np.linalg.norm(v)
+    return rodrigues(axis * np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def calibration_sweep(n_frames: int, cam_pos, target=(0.0, 0.0, 1.0)) -> dict:
+    """Deterministic cube-calibration trajectory: ``{t: SE3}``.
+
+    Interleaves two view families so that the marker graph is both well
+    covered and connected: 6 face views (each face turned square toward the
+    camera, spun through varying in-plane angles: frontal detections that
+    pass the tutorial's reprojection filter) and 12 edge-bridge views (an
+    edge midpoint normal toward the camera, both adjacent faces at ~45
+    degrees, which links the faces' markers into one component).  The
+    reference's cube_calib capture reaches the same coverage with 2000
+    random tumbles (reference render.py:393-432).
+    """
+    d = np.asarray(cam_pos, float) - np.asarray(target, float)
+    d = d / np.linalg.norm(d)
+    normals = [np.array(n, float) for n in
+               [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]]
+    # base rotations taking a cube direction onto the view axis
+    views = [_rot_between(n, d) for n in normals]
+    for i, ni in enumerate(normals):
+        for nj in normals[i + 1:]:
+            if abs(float(np.dot(ni, nj))) > 0.5:  # opposite faces share no edge
+                continue
+            e = ni + nj
+            views.append(_rot_between(e / np.linalg.norm(e), d))
+    out = {}
+    for t in range(n_frames):
+        # the in-plane spin varies across repeats of a view, so that face
+        # views cover all four marker orientations
+        phi = 2.0 * np.pi * (t * 0.37 + 0.15)
+        out[str(t)] = SE3(R=rodrigues(d * phi) @ views[t % len(views)],
+                          t=np.asarray(target, float))
+    return out
+
+
+def _cube_scene(cam_positions, n_frames: int, seed: int, *, res=(1280, 720),
+                wander: bool = False, target=(0.0, 0.0, 1.0), traj: dict | None = None):
+    """The cameras and the trajectory of :func:`render_cube_scene`, without
+    rendering: ``({cam_id: Camera}, {t: SE3 object->world})``."""
+    from .cam import Camera
+    from .render import cube_trajectory, look_at
+
+    W, H = res
+    f = 0.55 * (W + H)
+    K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1.0]])
+    cams = {
+        str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
+                       extrinsics=look_at(p, target), resolution_x=W, resolution_y=H)
+        for i, p in enumerate(cam_positions)
+    }
+    if traj is None:
+        traj = cube_trajectory(n_frames, seed, target=target, wander=wander)
+    return cams, traj
+
+
+def render_cube_scene(
+    root,
+    cam_positions,
+    n_frames: int,
+    seed: int,
+    *,
+    res=(1280, 720),
+    marker_size: float = 0.48 * 0.575,
+    wander: bool = False,
+    aruco: str = "DICT_4X4_1000",
+    target=(0.0, 0.0, 1.0),
+    traj: dict | None = None,
+    device=None,
+):
+    """Render a synthetic marker-cube capture to ``root``.
+
+    The scene recipe of the tutorial and the perception benchmark: cameras
+    at ``cam_positions`` looking at ``target`` with f = 0.55 (W + H), the
+    24-marker cube tumbling at the target (``wander=True`` adds the
+    tutorial's positional jitter), or moving along ``traj``.  Frames are
+    rendered on ``device`` (``None``: the CUDA card) and written by
+    :func:`vican_torch.render.render_dataset`.  Skips rendering when
+    ``root`` already exists.  Returns ``(cams, traj)``.
+    """
+    import os
+
+    from .render import make_cube_markers, render_dataset
+
+    cams, traj = _cube_scene(cam_positions, n_frames, seed, res=res, wander=wander,
+                             target=target, traj=traj)
+    if not os.path.isdir(root):
+        render_dataset(root, cams, traj, make_cube_markers(aruco), aruco=aruco,
+                       marker_size=marker_size, device=device)
+    return cams, traj
