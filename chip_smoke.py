@@ -29,10 +29,18 @@ device split, then drives two paths:
   detections, the edges must be accurate against ground truth, and
   ``bipartite_se3sync`` on them must recover all 8 cameras; then the
   ``host`` mode (host threshold, no kernel launch) over the same frames and
-  ``roi`` and ``auto`` over 64 of them must give the same edges;
+  ``roi`` and ``auto`` over 64 of them must give the same edges; then the
+  ``pure`` mode (:func:`pure_phase`: the components, candidates and re-fit
+  on the card too) over those 64 frames, held to the ``device`` run and to
+  the CPU;
+- the sharded solve, :func:`mesh_phase`: in a child process, one rank over
+  NCCL, ``bipartite_se3sync(mesh=make_mesh())`` on cell C's problem, whose
+  large-graph route runs ``pwr_apply`` on the rank's chunks, against
+  ``mesh=None``, and ``se3sync_sharded`` on cell A's against
+  ``bipartite_se3sync``;
 - the tutorial flow (examples/tutorial.py, the reference's main.ipynb),
-  :func:`tutorial_phase`: a 1000-frame cube capture and a 4-camera,
-  1000-frame room capture rendered on the card at 1280x720, the tutorial's
+  :func:`tutorial_phase`: a 250-frame cube capture and a 4-camera,
+  252-frame room capture rendered on the card at 1280x720, the tutorial's
   preprocess on the host, detection in the default mode, the cube's 24
   markers calibrated from its capture, the camera network solved from the
   room's detections and evaluated against ground truth; the first 8 room
@@ -57,7 +65,12 @@ the threshold kernel, renders the 32 frames its phase needs, runs
 :func:`threshold_phase` (it too runs in an older checkout), then, where
 the checkout has the launch plan, :func:`threshold_sweep`, and stops;
 ``python3 chip_smoke.py --tutorial`` builds the threshold kernel and the C
-modules, runs :func:`tutorial_phase`, and stops.
+modules, runs :func:`tutorial_phase`, and stops; ``--pure`` builds the
+same, runs the perception phases and :func:`pure_phase`, with ``--save
+PATH`` writes the pure phase's frames and both modes' edges to ``PATH``
+(:func:`save_pure_frames`), and stops;
+``--mesh`` builds ``pwr.cu`` and the C modules, runs :func:`mesh_phase`,
+and stops.
 """
 from __future__ import annotations
 
@@ -134,18 +147,20 @@ PERCEPTION_KW = dict(aruco="DICT_4X4_1000", marker_size=SCENE_MARKER,
 
 # Tutorial flow (examples/tutorial.py's synthetic mode, the reference's
 # main.ipynb): its marker size, ids, 4-camera rig (examples/tutorial.py:72-74,
-# wander, seed 1) and cube-calibration camera, at half the reference
-# captures' scale, both at 1280x720: 1000 cube frames (the reference's
-# cube_calib has 2000) and 250 room timesteps over 4 cameras, 1000 frames
+# wander, seed 1) and cube-calibration camera, at an eighth of the reference
+# captures' scale, both at 1280x720: 250 cube frames (the reference's
+# cube_calib has 2000) and 63 room timesteps over 4 cameras, 252 frames
 # (the notebook's tmax of 2000 timesteps would be 8000 frames).  At 2000 +
 # 2000 frames the phase took 318 s on an H100, over its ~300 s share of the
-# smoke's time.
+# smoke's time; once the pure and mesh phases came, the smoke read 421 s
+# with 1000 + 1000 frames (T 121 s) and 367 s with 500 + 500 (T 84 s), past
+# its ~330 s.
 TUTORIAL_MARKER = 0.138
 TUTORIAL_IDS = [str(i) for i in range(24)]
 TUTORIAL_RIG = [(3, 0, 1.2), (0, 3, 1.5), (-3, 0, 1.0), (0, -3, 1.3)]
 TUTORIAL_CUBE_POS = (1.1, 0.2, 1.1)
-TUTORIAL_CUBE_FRAMES = 1000
-TUTORIAL_ROOM_STEPS = 250
+TUTORIAL_CUBE_FRAMES = 250
+TUTORIAL_ROOM_STEPS = 63
 TUTORIAL_TMAX = 2000
 TUTORIAL_RES = (1280, 720)
 TUTORIAL_PREPROCESS = dict(brightness=-150.0, contrast=120.0)
@@ -1009,6 +1024,217 @@ def perception_modes(device_run) -> None:
         raise AssertionError(f"perception_modes: {faults}")
 
 
+PURE_FRAMES = 64  # P's first two batches
+# The JAX package's pure and device modes on P's first 64 frames (the
+# frames fetched from the card, both modes of vican_tpu.cam.estimate_pose_mp
+# on the CPU, JAX_PLATFORMS=cpu): the keys only one mode finds, and the
+# largest corner gap over the keys both find.  The modes' candidates differ
+# in tie-breaking, the row-subsampled re-fit and the dedup score, so on
+# these frames the JAX package's own modes miss its close-range bar
+# (tests/test_perception.py:618-627: the same set, 0.5 px); the port's
+# pure edges equalled the JAX package's pure edges there (the same keys,
+# corners within 1.2e-6 px), and its device edges the JAX device edges.
+JAX_PURE_ONLY = {("0", "7_392"), ("0", "7_400"), ("1", "1_106"), ("2", "3_19"),
+                 ("5", "2_400"), ("6", "7_373")}
+JAX_DEVICE_ONLY = {("3", "4_703"), ("6", "0_109"), ("6", "1_2"), ("6", "5_190")}
+JAX_PURE_VS_DEVICE_PX = 5.976840510898619
+
+
+def save_pure_frames(device_run, path: str) -> None:
+    """Write the pure phase's frames and the port's edges in both modes on
+    them to ``path`` (``--pure --save path``), for ``tools/pure_vs_jax.py``,
+    which runs the JAX package's two modes on the same frames on the CPU."""
+    frames, names, frame_cams, device_edges = device_run
+    n = PURE_FRAMES
+    pure, _ = _perception_run(frames[:n], names[:n], frame_cams[:n], pipeline_mode="pure")
+    first = set(names[:n])
+    dev = {k: v for k, v in device_edges.items() if v["im_filename"] in first}
+
+    def keys(edges):
+        return np.array([f"{c}|{m}" for c, m in edges])
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, frames=frames[:n], names=np.array(names[:n]),
+                        cams=np.array([c.id for c in frame_cams[:n]]),
+                        device_keys=keys(dev), device_corners=np.stack([v["corners"] for v in dev.values()]),
+                        pure_keys=keys(pure), pure_corners=np.stack([v["corners"] for v in pure.values()]))
+
+
+def pure_phase(device_run) -> int:
+    """The ``pure`` mode on the scene's first :data:`PURE_FRAMES` frames:
+    the threshold kernel once per batch, then the components, candidates
+    and re-fit on the card.  Against the ``device`` run on those frames it
+    must differ exactly as the JAX package's two modes do there (the keys
+    of :data:`JAX_PURE_ONLY` and :data:`JAX_DEVICE_ONLY`; the largest corner
+    gap within 2e-3 px, twice the card-vs-CPU bar, of
+    :data:`JAX_PURE_VS_DEVICE_PX`), and its first 8 frames on the CPU must
+    give the card's keys with corners within 1e-3 px.  Prints images/s, the
+    phase split and the peak memory.  Returns the kernel's launches."""
+    import torch
+
+    frames, names, frame_cams, device_edges = device_run
+    n = PURE_FRAMES
+    first = set(names[:n])
+    device_first = {k: v for k, v in device_edges.items() if v["im_filename"] in first}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    edges, run = _perception_run(frames[:n], names[:n], frame_cams[:n], pipeline_mode="pure")
+    peak = torch.cuda.max_memory_allocated()
+    vs_device = _edge_diff(device_first, edges)
+    t0 = time.perf_counter()
+    cpu = _perception_run_cpu(frames[:8], names[:8], frame_cams[:8], pipeline_mode="pure")
+    cpu_s = time.perf_counter() - t0
+    card8 = {k: v for k, v in edges.items() if v["im_filename"] in set(names[:8])}
+    d_cpu = max((float(np.abs(card8[k]["corners"] - cpu[k]["corners"]).max())
+                 for k in cpu if k in card8), default=0.0)
+    emit("pure", **run, max_memory_allocated=peak,
+         vs_device=dict(vs_device, pure_only=sorted(set(edges) - set(device_first)),
+                        device_only=sorted(set(device_first) - set(edges))),
+         cpu=dict(frames=8, seconds=cpu_s, detections=len(cpu), same_keys=set(cpu) == set(card8),
+                  max_corner_diff_px=d_cpu))
+    faults = []
+    if run["kernel_launches"] != run["batches"]:
+        faults.append(f"{run['kernel_launches']} threshold launches for {run['batches']} batches")
+    if len(edges) < 10 * (n // 8):
+        faults.append(f"only {len(edges)} detections")
+    pure_only, device_only = set(edges) - set(device_first), set(device_first) - set(edges)
+    if (pure_only, device_only) != (JAX_PURE_ONLY, JAX_DEVICE_ONLY) or not abs(
+            vs_device["max_corner_diff_px"] - JAX_PURE_VS_DEVICE_PX) < 2e-3:
+        faults.append(f"against the device mode: {vs_device}, pure only {sorted(pure_only)}, "
+                      f"device only {sorted(device_only)}")
+    if set(cpu) != set(card8) or not d_cpu < 1e-3:
+        faults.append(f"against the CPU: keys {set(cpu) ^ set(card8)}, corners {d_cpu} px")
+    if faults:
+        raise AssertionError(f"pure: {faults}")
+    return run["kernel_launches"]
+
+
+def _perception_run_cpu(frames, names, frame_cams, **kw):
+    """``estimate_pose_gray`` on the CPU (the kernels' plain versions)."""
+    from vican_torch.perception import estimate_pose_gray
+
+    return estimate_pose_gray(frames, names, frame_cams, device="cpu", **PERCEPTION_KW, **kw)
+
+
+MESH_TIMEOUT_S = 600
+MESH_ROT_TOL_DEG = 0.01
+MESH_TRANS_TOL_M = 1e-3
+
+
+def _pose_gap(ref: dict, out: dict) -> tuple[float, float]:
+    """Largest rotation (degrees) and translation (m) gap over the keys of
+    ``ref``, which ``out`` must all have.  The angle comes from the chord,
+    ``|R1 - R2|_F = 2 sqrt(2) sin(angle / 2)``: the arccos of a float32
+    trace cannot resolve angles below ~0.02 degrees."""
+    missing = set(ref) - set(out)
+    if missing:
+        raise AssertionError(f"mesh: {len(missing)} nodes missing from the sharded result")
+    chord = max(float(np.linalg.norm(np.asarray(ref[k].R(), np.float64)
+                                     - np.asarray(out[k].R(), np.float64))) for k in ref)
+    rot = np.degrees(2.0 * np.arcsin(min(1.0, chord / (2.0 * np.sqrt(2.0)))))
+    tr = max(float(np.linalg.norm(ref[k].t() - out[k].t())) for k in ref)
+    return float(rot), tr
+
+
+def mesh_child() -> None:
+    """The ``mesh`` phase's body (``chip_smoke.py --mesh-child``): a world of
+    one rank over NCCL, then ``bipartite_se3sync(mesh=make_mesh())`` on cell
+    C's problem (the large-graph route, chunks split over the mesh) against
+    ``mesh=None``, and ``se3sync_sharded`` on cell A's problem against
+    ``bipartite_se3sync``: each in float32, where the sharded filter runs
+    ``pwr_apply``, and in float64.  Two float32 runs without the mesh give
+    the float32 route's own run-to-run gap.  Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from vican_torch import bipgo
+    from vican_torch.geometry import SE3
+    from vican_torch.parallel import init_distributed, make_mesh, se3sync_sharded
+    from vican_torch.solver.packing import pack_problem
+    from vican_torch.solver.pwr import pwr_apply
+    from vican_torch.synthetic import make_problem_arrays
+
+    init_distributed()
+    mesh = make_mesh()
+    out = {"backend": dist.get_backend(), "world": mesh.size()}
+
+    def kw(dtype):
+        return dict(noise_model_r=_one, noise_model_t=_one, edge_filter=_filt, maxiter=MAXITER,
+                    lsqr_solver="conjugate_gradient", dtype=dtype, verbose=False)
+
+    prob = make_problem_arrays(**CONFIG_C)
+    assert bipgo._use_scale_path(CONFIG_C["n_cams"], CONFIG_C["n_times"], np.float32)
+    runs = {}
+    for name, m, dtype in (("mesh", mesh, np.float32), ("single", None, np.float32),
+                           ("single_again", None, np.float32), ("mesh_f64", mesh, np.float64),
+                           ("single_f64", None, np.float64)):
+        pwr_apply.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = bipgo.bipartite_se3sync(prob.edges, prob.constraints(), mesh=m, **kw(dtype))
+        torch.cuda.synchronize()
+        runs[name] = (est, time.perf_counter() - t0, pwr_apply.launches)
+    out["cell_C"] = dict(
+        float64=_pose_gap(runs["single_f64"][0], runs["mesh_f64"][0]),
+        float32=_pose_gap(runs["single"][0], runs["mesh"][0]),
+        float32_run_to_run=_pose_gap(runs["single"][0], runs["single_again"][0]),
+        seconds={k: v[1] for k, v in runs.items()},
+        pwr_launches={k: v[2] for k, v in runs.items()})
+    del runs, prob
+
+    prob = make_problem_arrays(**CONFIG_A)
+    out["cell_A"] = {}
+    for dtype in (np.float32, np.float64):
+        single = bipgo.bipartite_se3sync(prob.edges, prob.constraints(), **kw(dtype))
+        packed = pack_problem(prob.edges, prob.constraints(), _one, _one, _filt, dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_cam, _, t_est, res = se3sync_sharded(packed, maxiter=MAXITER, mesh=mesh, dtype=dtype)
+        seconds = time.perf_counter() - t0
+        sharded = {c: SE3(R=r_cam[i], t=t_est[i]) for i, c in enumerate(packed.cam_ids)}
+        out["cell_A"][np.dtype(dtype).name] = dict(
+            gap=_pose_gap({c: single[c] for c in packed.cam_ids}, sharded), seconds=seconds,
+            cg_residual=res)
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def mesh_phase() -> int:
+    """Phase ``mesh``: :func:`mesh_child` in a process of its own, under its
+    own timeout, so the process group ends with it.  Fails when a float64
+    gap passes :data:`MESH_ROT_TOL_DEG` / :data:`MESH_TRANS_TOL_M` or the
+    sharded float32 route did not launch ``pwr_apply``.  The bar holds the
+    float64 solves: the float32 large-graph route moves by about as much
+    between two runs without a mesh (its run-to-run gap is printed beside
+    the mesh's; the JAX package gates its mesh parity in float64 for the
+    same reason, __graft_entry__.py:104-112).  Returns the sharded float32
+    run's launches."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-child"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=MESH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh: the child failed ({proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("mesh", seconds=time.perf_counter() - t0, **out)
+    faults = [f"{cell}: {gap[0]} deg, {gap[1]} m"
+              for cell, gap in (("C", out["cell_C"]["float64"]),
+                                ("A", out["cell_A"]["float64"]["gap"]))
+              if not (gap[0] <= MESH_ROT_TOL_DEG and gap[1] <= MESH_TRANS_TOL_M)]
+    launches = out["cell_C"]["pwr_launches"]["mesh"]
+    if launches <= 0:
+        faults.append("the sharded route never launched pwr_apply")
+    if (out["backend"], out["world"]) != ("nccl", 1):
+        faults.append(f"backend {out['backend']}, world {out['world']}")
+    if faults:
+        raise AssertionError(f"mesh: {faults}")
+    return launches
+
+
 def _tutorial_capture(cams: dict, traj: dict, markers: dict, dev):
     """One capture of the tutorial, rendered on the card in chunks of
     timesteps, fetched to the host as decoded files would arrive there,
@@ -1183,6 +1409,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    if "--mesh-child" in sys.argv:
+        mesh_child()
+        return
     sys.path.insert(0, REPO)
     from vican_torch import _kernels, bipgo
     from vican_torch.geometry import distance_SO3
@@ -1204,9 +1433,10 @@ def main() -> None:
     emit("device", kind=name, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, host_packages=host_packages)
 
-    partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial"))
+    partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial", "--pure"))
     t0 = time.perf_counter()
-    logs = _kernels.build(["threshold"] if partial else None)
+    logs = _kernels.build(["threshold"] if partial else ["pwr"] if "--mesh" in sys.argv
+                          else None)
     build_s = time.perf_counter() - t0
     ptxas = logs.get("threshold", {}).get("ptxas", "")
     if "--threshold" in sys.argv:
@@ -1225,6 +1455,15 @@ def main() -> None:
          kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
     if "--tutorial" in sys.argv:
         tutorial_phase(dev)
+        return
+    if "--mesh" in sys.argv:
+        mesh_phase()
+        return
+    if "--pure" in sys.argv:
+        _, device_run = perception_phases(dev, ptxas)
+        pure_phase(device_run)
+        if "--save" in sys.argv:
+            save_pure_frames(device_run, sys.argv[sys.argv.index("--save") + 1])
         return
     if "--perception" in sys.argv:
         th, device_run = perception_phases(dev, ptxas)
@@ -1303,9 +1542,12 @@ def main() -> None:
     del prob, large, dense
 
     d = config_d_phase(dev)
+    torch.cuda.empty_cache()
+    launches_mesh = mesh_phase()
 
     th, device_run = perception_phases(dev, ptxas)
     perception_modes(device_run)
+    launches_pure = pure_phase(device_run)
     del device_run
     launches_t = tutorial_phase(dev)
 
@@ -1313,7 +1555,8 @@ def main() -> None:
     kernels = [{
         "name": "pwr_apply", "route": "cuda", "source": "vican_torch/csrc/pwr.cu",
         "replaces": "vican_tpu/solver/pallas_pwr.py:65",
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "launches": launches, "launches_mesh": launches_mesh,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "max_rel_err": max(r["max_rel_err"] for r in rows.values()),
         "ms": w10["ms"], "kernel_ms": w10["ms"], "plain_ms": w10["plain_ms"],
         "bound_ms": w10["bound_ms"], "bound_by": w10["bound_by"],
@@ -1322,7 +1565,8 @@ def main() -> None:
     }, {
         "name": "multi_threshold", "route": "cuda", "source": "vican_torch/csrc/threshold.cu",
         "replaces": "vican_tpu/ops/pallas/threshold.py:33",
-        "launches": th["launches"], "launches_T": launches_t, "max_abs_err": th["max_abs_err"],
+        "launches": th["launches"], "launches_pure": launches_pure, "launches_T": launches_t,
+        "max_abs_err": th["max_abs_err"],
         "differing_bytes": th["differing_bytes"], "ms": th["ms"], "kernel_ms": th["kernel_ms"],
         "plain_ms": th["plain_ms"],
         "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],

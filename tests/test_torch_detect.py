@@ -130,10 +130,12 @@ def test_detector_params_from_jax():
     p = TD.detector_params_from_jax(jp._asdict())
     for f in TD.DetectorParams._fields:
         assert getattr(p, f) == getattr(jp, f), f
-    # transport and pure-mode fields are dropped, every other one carries over
+    # transport fields are dropped, every other one carries over, the pure
+    # mode's among them
     assert set(jp._fields) - set(p._fields) == {
         "use_pallas_threshold", "roi_matmul_sampling", "roi_tiers", "roi_margin",
-        "mask_tile_rate", "ccl_passes", "max_refit_candidates", "refit_rows"}
+        "mask_tile_rate"}
+    assert (p.ccl_passes, p.refit_rows, p.max_refit_candidates) == (4, 64, 6)
     assert TD.detector_params_from_jax(JD.DetectorParams()._asdict()) == TD.DetectorParams()
     with pytest.raises(ValueError, match="unknown"):
         TD.detector_params_from_jax({**jp._asdict(), "no_such_field": 1})

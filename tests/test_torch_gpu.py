@@ -403,3 +403,121 @@ def test_detect_and_draw_on_the_card(cuda, tmp_path, capsys):
     assert capsys.readouterr().out.strip().splitlines()[-1] == card_ids
     assert len(eval(card_ids)) >= 4
     np.testing.assert_array_equal(card, cpu)
+
+
+def _rendered_640(cuda, timesteps, seed, pad=0):
+    """The cube seen by three cameras at 640x360 (``pad`` replicated columns
+    more), rendered on the card: ``(frames, names, frame_cams)``."""
+    import torch.nn.functional as F
+
+    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
+    cams = {str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
+                           extrinsics=render.look_at(pos, (0, 0, 1.0)),
+                           resolution_x=640, resolution_y=360)
+            for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
+    frames, names, frame_cams = render.render_frames(
+        cams, render.cube_trajectory(timesteps, seed=seed), render.make_cube_markers(),
+        marker_size=0.138, device=cuda)
+    frames = F.pad(frames.float(), (0, pad), mode="replicate").to(torch.uint8).contiguous()
+    return frames, names, frame_cams
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [0, 3], ids=["W=640", "W=643"])
+def test_pure_mode_on_the_card_matches_cpu(cuda, pad):
+    """The ``pure`` program on the card (the threshold kernel, then the
+    components, candidates and re-fit on the card) against the CPU on 4
+    frames, at the frames' width and a ragged one: the same keys, corners
+    within 1e-3 px; one kernel launch per batch."""
+    frames, names, frame_cams = _rendered_640(cuda, 2, 7, pad)
+    frames, names, frame_cams = frames[:4], names[:4], frame_cams[:4]
+    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
+              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+              batch_size=4, verbose=False, pipeline_mode="pure")
+    before = multi_threshold.launches
+    card = estimate_pose_gray(frames, names, frame_cams, **kw)
+    assert multi_threshold.launches == before + 1
+    cpu = estimate_pose_gray(frames.cpu(), names, frame_cams, device="cpu", **kw)
+    assert len(cpu) > 5 and list(card) == list(cpu)
+    for k in cpu:
+        np.testing.assert_allclose(card[k]["corners"], cpu[k]["corners"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_detect_markers_on_the_card_matches_cpu(cuda):
+    """``detect_markers`` on a batch on the card against the CPU: the same
+    valid slots and ids, corners within 1e-3 px."""
+    from vican_torch.ops import detect as D
+    from vican_torch.ops.dictionary import marker_bits_table
+
+    frames, _, _ = _rendered_640(cuda, 1, 9)
+    params = D.resolve_error_correction(D.DetectorParams(), "DICT_4X4_1000")
+    table = marker_bits_table("DICT_4X4_1000")
+    before = multi_threshold.launches
+    card = D.detect_markers(frames.float(), table, 4, params, device=cuda)
+    assert multi_threshold.launches == before + 1
+    cpu = D.detect_markers(frames.cpu().float(), table, 4, params, device="cpu")
+    valid = cpu.valid.numpy()
+    assert valid.sum() > 5
+    np.testing.assert_array_equal(card.valid.cpu().numpy(), valid)
+    np.testing.assert_array_equal(card.ids.cpu().numpy()[valid], cpu.ids.numpy()[valid])
+    np.testing.assert_allclose(card.corners.cpu().numpy()[valid], cpu.corners.numpy()[valid],
+                               rtol=0, atol=1e-3)
+
+
+MESH_CHILD = r"""
+import json, os, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+os.environ["VICAN_TPU_SCALE_MIN_CAMS"] = "16"  # the large-graph route at 64 cameras
+import torch.distributed as dist
+from vican_torch import bipgo
+from vican_torch.parallel import init_distributed, make_mesh
+from vican_torch.solver.pwr import pwr_apply
+from vican_torch.synthetic import make_problem_arrays
+
+init_distributed()
+mesh = make_mesh()
+prob = make_problem_arrays(seed=3, n_cams=64, n_times=400, n_edges=6000)
+out = {"backend": dist.get_backend(), "world": mesh.size()}
+for dtype in (np.float64, np.float32):
+    kw = dict(noise_model_r=lambda e: 1.0, noise_model_t=lambda e: 1.0,
+              edge_filter=lambda e: True, maxiter=4, dtype=dtype, verbose=False)
+    pwr_apply.launches = 0
+    sharded = bipgo.bipartite_se3sync(prob.edges, prob.constraints(), mesh=mesh, **kw)
+    launches = pwr_apply.launches
+    single = bipgo.bipartite_se3sync(prob.edges, prob.constraints(), **kw)
+    out[np.dtype(dtype).name] = {
+        "launches": launches,
+        "rot": max(float(np.abs(sharded[k].R() - single[k].R()).max()) for k in single),
+        "t": max(float(np.abs(sharded[k].t() - single[k].t()).max()) for k in single)}
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+def test_mesh_large_route_over_nccl_matches_single(cuda, tmp_path):
+    """``bipartite_se3sync(mesh=make_mesh())`` over NCCL at world size 1 in a
+    child process of its own (its own timeout ends the process group):
+    float64 rotations equal to ``mesh=None`` within 1e-9 (entries),
+    translations within the CG tolerance of tests/test_sharded.py (1e-3 m:
+    the relative-residual stop may fall one iteration apart); in float32
+    the sharded filter launches ``pwr_apply``."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "mesh_child.py"
+    script.write_text(MESH_CHILD)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    proc = subprocess.run([sys.executable, str(script), repo], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (out["backend"], out["world"]) == ("nccl", 1)
+    assert out["float64"]["rot"] < 1e-9 and out["float64"]["t"] < 1e-3, out
+    assert out["float32"]["launches"] > 0 and out["float64"]["launches"] == 0, out

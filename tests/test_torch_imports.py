@@ -1,8 +1,9 @@
 """The port stands alone: importing it, its solver, its perception, its
-dataset loaders, its evaluation, serialization and plot modules, every
-member of its lazy ``__all__``, building its C modules and importing the
-chip smoke test pulls in neither JAX nor the JAX package (checked in a fresh interpreter,
-since this test process has both loaded)."""
+dataset loaders, its evaluation, serialization and plot modules, its
+parallel package, every member of its lazy ``__all__``, building its C
+modules and importing the chip smoke test pulls in neither JAX nor the JAX
+package (checked in a fresh interpreter, since this test process has both
+loaded)."""
 import os
 import subprocess
 import sys
@@ -28,6 +29,7 @@ def test_port_imports_neither_jax_nor_vican_tpu():
         "for name in vican_torch.__all__:\n"
         "    getattr(vican_torch, name)\n"
         "import vican_torch.ops.detect, vican_torch.ops.pnp, vican_torch.ops.threshold\n"
+        "import vican_torch.parallel, vican_torch.parallel.mesh, vican_torch.parallel.sharded\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vican_tpu'))\n"
@@ -42,16 +44,16 @@ def test_port_imports_neither_jax_nor_vican_tpu():
 
 
 def test_lazy_all_lists_the_jax_package_modules_the_port_has():
-    """``vican_torch.__all__`` is ``vican_tpu.__all__`` without the modules
-    not ported yet (``parallel``, ROADMAP section 1), each a module that a
-    plain attribute access imports."""
+    """``vican_torch.__all__`` is ``vican_tpu.__all__``, ``parallel``
+    included, each a module that a plain attribute access imports."""
     import importlib
 
     import vican_torch
     import vican_tpu
 
-    assert vican_torch.__all__ == [m for m in vican_tpu.__all__ if m != "parallel"]
+    assert vican_torch.__all__ == vican_tpu.__all__
+    assert "parallel" in vican_torch.__all__
     for name in vican_torch.__all__:
         assert getattr(vican_torch, name) is importlib.import_module(f"vican_torch.{name}")
     with pytest.raises(AttributeError):
-        vican_torch.parallel
+        vican_torch.no_such_module

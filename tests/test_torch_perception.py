@@ -22,6 +22,7 @@ from vican_torch import perception as TP
 from vican_torch import render as TR
 from vican_torch.utils import PhaseTimer
 from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
+from torch_threads import two_threads  # noqa: F401
 
 MARKER_SIZE = 0.138
 DIST = np.array([-0.25, 0.08, 1.5e-3, -1.2e-3, -0.012, -0.02, 0.004, -0.001,
@@ -146,15 +147,17 @@ def test_estimate_pose_worker_is_one_frame_of_the_batch(rendered):
         np.testing.assert_array_equal(one[k]["corners"], batch[k]["corners"])
 
 
-def test_unported_modes_and_missing_card_raise(rendered, monkeypatch):
+def test_unported_modes_and_missing_card_raise(rendered, monkeypatch, two_threads):
+    """The ``pure`` mode runs; a ``mesh`` that is not a ``DeviceMesh``, an
+    unknown mode and a missing card raise."""
     files, cams = rendered.im_data["filename"][:1], _port_cams(rendered.im_data["cam"][:1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode="pure",
-                            device="cpu", **KW)
+    pure = TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode="pure",
+                               device="cpu", **KW)
+    assert len(pure) >= 4
     with pytest.raises(ValueError, match="unknown perception pipeline mode"):
         TC.estimate_pose_mp(files, cams, marker_ids=None, pipeline_mode="tiles",
                             device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TC.estimate_pose_mp(files, cams, marker_ids=None, mesh=object(), device="cpu", **KW)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -162,6 +165,66 @@ def test_unported_modes_and_missing_card_raise(rendered, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TR.render_frames({"0": cams[0]}, _traj(1, 3), make_cube_markers(),
                          marker_size=MARKER_SIZE)
+
+
+def test_pure_mode_matches_jax_pure_mode(rendered, two_threads):
+    """``pipeline_mode="pure"`` against the JAX package's pure mode on the
+    same files: the same edges (keys, order, corners within 1e-3 px,
+    poses)."""
+    files, cams = rendered.im_data["filename"], rendered.im_data["cam"]
+    ref = estimate_pose_mp(files, cams, pipeline_mode="pure", marker_ids=None, **KW)
+    timer = PhaseTimer(verbose=False, device=torch.device("cpu"))
+    gray = np.stack([cv.imread(f, cv.IMREAD_GRAYSCALE) for f in files])
+    out = TP.estimate_pose_gray(gray, files, _port_cams(cams), device="cpu", timer=timer,
+                                pipeline_mode="pure",
+                                **{k: v for k, v in KW.items()
+                                   if k not in ("brightness", "contrast")})
+    _assert_same_edges(ref, out)
+    assert list(out) == list(ref)
+    phases = {e["name"] for e in timer.events}
+    assert {"threshold kernel", "device candidates", "detect program"} <= phases
+    assert not phases & {"masks to host", "host threshold", "host candidates"}
+
+
+def test_pure_mode_matches_device_mode_close_range(tmp_path, two_threads):
+    """The port's ``pure`` against its ``device`` mode on the close-range
+    scene of tests/test_perception.py:591-627: the same marker set, corners
+    within 0.5 px (the JAX package's bar between its two modes)."""
+    from vican_tpu.synthetic import render_cube_scene
+
+    root = str(tmp_path / "close")
+    render_cube_scene(root, [(1.1, 0.15, 1.05)], 4, seed=23, res=(640, 360), marker_size=0.24)
+    ds = Dataset(root)
+    kw = dict(KW, marker_size=0.24, marker_ids=[str(i) for i in range(24)])
+    files, cams = ds.im_data["filename"], _port_cams(ds.im_data["cam"])
+    dev = TC.estimate_pose_mp(files, cams, pipeline_mode="device", device="cpu", **kw)
+    pure = TC.estimate_pose_mp(files, cams, pipeline_mode="pure", device="cpu", **kw)
+    assert len(dev) >= 8
+    assert set(pure) == set(dev), (sorted(set(pure) - set(dev)), sorted(set(dev) - set(pure)))
+    for k in pure:
+        np.testing.assert_allclose(pure[k]["corners"], dev[k]["corners"], rtol=0, atol=0.5)
+
+
+def test_resolve_mode_falls_back_to_pure_without_a_labeler(monkeypatch):
+    """Neither the C labeler nor scipy: every hybrid mode falls back to
+    ``pure`` with a warning, as vican_tpu/perception.py:1197-1211 does;
+    ``pure`` itself needs no labeler, and ``auto`` is ``device`` otherwise."""
+    import builtins
+
+    assert TP._resolve_mode("auto") == "device"
+    monkeypatch.setattr(TP, "_get_ccl", lambda: None)
+    real_import = builtins.__import__
+
+    def no_scipy(name, *args, **kwargs):
+        if name.startswith("scipy"):
+            raise ImportError(name)
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_scipy)
+    for mode in ("auto", "device", "host", "roi"):
+        with pytest.warns(UserWarning, match="falling back to the pure-device path"):
+            assert TP._resolve_mode(mode) == "pure"
+    assert TP._resolve_mode("pure") == "pure"
 
 
 MODES = ("device", "host", "roi", "auto")

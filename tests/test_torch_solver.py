@@ -288,8 +288,13 @@ def test_bipartite_se3sync_mesh_none_solves(prob):
 
 
 def test_bipartite_se3sync_mesh_raises(prob):
-    """Any other ``mesh`` (sharding over cards) is not ported yet and says
-    where it is queued."""
+    """A ``mesh`` that is not a ``torch.distributed`` ``DeviceMesh`` raises
+    ``TypeError``, on the dense route too and in the rotation-only entry
+    point; sharded solves are tests/test_torch_parallel.py's."""
     args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0, lambda e: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbipgo.bipartite_se3sync(*args, maxiter=4, verbose=False, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tbipgo.large_bipartite_so3sync(prob.edges, prob.constraints(), lambda e: 1.0,
+                                       lambda e: True, 4, verbose=False, mesh="edges",
+                                       device="cpu")

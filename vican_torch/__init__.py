@@ -17,6 +17,7 @@ the caller passes ``device="cpu"``.
   - :mod:`vican_torch.render`        -- synthetic scene renderer
   - :mod:`vican_torch.synthetic`     -- synthetic problems and captures
   - :mod:`vican_torch.ops`           -- the batched device operations
+  - :mod:`vican_torch.parallel`      -- torch.distributed meshes, sharded solves
 """
 
 __version__ = "0.1.0"
@@ -36,6 +37,7 @@ __all__ = [
     "render",
     "synthetic",
     "ops",
+    "parallel",
 ]
 
 

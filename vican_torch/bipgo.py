@@ -24,11 +24,17 @@ kernel of :mod:`.solver.pwr`; past the 6 GB operator budget, its streaming
 regime, on the kernel of :mod:`.solver.mv`).  Translations are solved on
 the device by CG or LSQR in the requested dtype on both routes; float64
 computes in float64 on the device.
+
+``mesh=`` (a ``DeviceMesh`` of :mod:`vican_torch.parallel`, one card per
+rank) splits the large-graph route's time chunks over the ranks
+(:func:`.solver.scale.so3_sync_large_sharded`); the translations and the
+dense route run whole on every rank.
 """
 from __future__ import annotations
 
 import os
 import warnings
+from functools import partial
 from typing import Callable
 
 import numpy as np
@@ -163,9 +169,11 @@ def _fold_and_chunk(packed: PackedProblem, dtype):
     return chunked, chunk_t
 
 
-def _so3_sync_large_from_packed(packed: PackedProblem, dtype, maxiter, tm, verbose, device):
+def _so3_sync_large_from_packed(packed: PackedProblem, dtype, maxiter, tm, verbose, device,
+                                mesh=None):
     """Rotation stage of the large-graph route: fold on the host, chunk by
-    time, solve on the device.  Returns a :class:`~.solver.core.SyncResult`."""
+    time, solve on the device, or on every card of ``mesh`` with the chunks
+    split over them.  Returns a :class:`~.solver.core.SyncResult`."""
     from .solver import scale as _scale
 
     C, T = packed.num_cams, packed.num_times
@@ -176,21 +184,26 @@ def _so3_sync_large_from_packed(packed: PackedProblem, dtype, maxiter, tm, verbo
               else "camera count past the dense-eigh threshold")
     tm.log("Large-graph path: {} chunks of {} timesteps ({})".format(
         chunked[0].shape[0], chunk_t, reason))
+    solve = (_scale.so3_sync_large if mesh is None
+             else partial(_scale.so3_sync_large_sharded, mesh=mesh))
     with tm.phase("Optimizing (chunked power graph)"):
-        result = _scale.so3_sync_large(
-            *chunked, C=C, T=T, chunk_t=chunk_t, maxiter=maxiter,
-            cert_tol=1e-6 / packed.k_r_scale, device=device,
-        )
+        result = solve(*chunked, C=C, T=T, chunk_t=chunk_t, maxiter=maxiter,
+                       cert_tol=1e-6 / packed.k_r_scale, device=device)
     if verbose:
         _log_sync_result(tm, result)
     return result
 
 
 def _start(src_edges, constraints, noise_model_r, noise_model_t, edge_filter,
-           dtype, verbose, device):
-    """What every entry point does first: resolve the device (``None`` is
-    the card), turn TF32 off, check the dtype, log the graph's size and pack
-    the edge dict.  Returns ``(device, dtype, torch dtype, timer, packed)``."""
+           dtype, verbose, device, mesh=None):
+    """What every entry point does first: check ``mesh`` (``None`` or a
+    ``DeviceMesh``, else ``TypeError``), resolve the device (``None`` is the
+    card), turn TF32 off, check the dtype, log the graph's size and pack the
+    edge dict.  Returns ``(device, dtype, torch dtype, timer, packed)``."""
+    if mesh is not None:
+        from .parallel.sharded import _group
+
+        _group(mesh)
     device = resolve_device(device)
     no_tf32()
     dtype = _solver_dtype(dtype)
@@ -226,27 +239,27 @@ def bipartite_se3sync(
     device (``lsqr_solver``: ``"conjugate_gradient"`` for CG on the normal
     equations, ``"direct"`` for LSQR, bipgo.py:476-480).  Returns
     ``{node: SE3}`` world-frame poses for cameras and ``"<t>_0"`` object
-    nodes.  ``mesh``: only ``None`` (one card) is ported; sharding the
-    large-graph chunk stream over several cards is ROADMAP section 1 item 5.
-    ``device``: where the solve runs; ``None`` is the CUDA card.
+    nodes.  ``mesh``: a ``DeviceMesh`` of :mod:`vican_torch.parallel`, run
+    on every one of its ranks; the large-graph route splits its time chunks
+    over the ranks' cards and every rank solves the translations on its
+    own, so every rank returns the whole result (the dense route ignores
+    ``mesh``, as in JAX).  ``device``: where the solve runs; ``None`` is
+    the CUDA card (the rank's own under a mesh).
     """
     if lsqr_solver not in ("conjugate_gradient", "direct"):
         raise ValueError(
             f"unknown lsqr_solver: {lsqr_solver!r}; "
             "expected 'conjugate_gradient' or 'direct'"
         )
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the large-graph solve sharded over cards) is not "
-                                  "ported yet (ROADMAP section 1 item 5)")
     device, dtype, tdt, tm, packed = _start(
         src_edges, constraints, noise_model_r, noise_model_t, edge_filter, dtype, verbose,
-        device)
+        device, mesh)
     tm.log("Bipartite graph: {} cameras, {} timesteps, {} edges.".format(
         packed.num_cams, packed.num_times, packed.num_edges))
 
     C, T = packed.num_cams, packed.num_times
     if _use_scale_path(C, T, dtype):
-        result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device)
+        result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device, mesh)
         with tm.phase("Solving translations (matrix-free)"):
             arrs = _device_arrays(packed, tdt, device)
             t_est, res = _solve_translations(result, arrs, packed, lsqr_solver, C, T)
@@ -280,22 +293,24 @@ def large_bipartite_so3sync(
     maxiter: int,
     dtype=np.float32,
     verbose: bool = True,
+    mesh=None,
     device=None,
 ) -> dict:
     """SO(3) synchronization in large bipartite graphs with node constraints:
     the rotation stage of :func:`bipartite_se3sync` alone, on the same two
     routes.  Edge keys are ``(camera_id, "<t>_<marker>")``; values carry at
     least ``"pose"``.  Returns world-frame (3, 3) rotations keyed by camera
-    id and ``"<t>_0"``.  ``device``: where the solve runs; ``None`` is the
-    CUDA card."""
+    id and ``"<t>_0"``.  ``mesh``: as in :func:`bipartite_se3sync` (a
+    keyword the JAX function lacks).  ``device``: where the solve runs;
+    ``None`` is the CUDA card."""
     device, dtype, tdt, tm, packed = _start(
         src_edges, constraints, noise_model, lambda e: 1.0, edge_filter, dtype, verbose,
-        device)
+        device, mesh)
     tm.log("Bipartite graph: {} cameras, {} timesteps, {} edges.".format(
         packed.num_cams, packed.num_times, packed.num_edges))
     C, T = packed.num_cams, packed.num_times
     if _use_scale_path(C, T, dtype):
-        result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device)
+        result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device, mesh)
     else:
         with tm.phase("Optimizing"):
             arrs = _device_arrays(packed, tdt, device)

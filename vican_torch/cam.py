@@ -2,7 +2,10 @@
 
 The port of ``vican_tpu.cam``.  :class:`Camera` and :func:`gen_marker_uid`
 are host types; detection, PnP and LM refinement run batched on the card
-(:mod:`vican_torch.perception`), driven by :func:`estimate_pose_mp`.
+(:mod:`vican_torch.perception`), driven by :func:`estimate_pose_mp`: in the
+``device`` mode with the candidates extracted on the host, or the whole
+detection on the card in the ``pure`` mode; with ``mesh=``, over the cards
+of a ``torch.distributed`` mesh (:mod:`vican_torch.parallel`).
 """
 from __future__ import annotations
 
@@ -126,7 +129,10 @@ def estimate_pose_mp(
     and LM refinement -- see :mod:`vican_torch.perception`).
     ``pipeline_mode``: ``"auto"`` (= ``"device"``: the threshold kernel on
     the card), ``"device"``, ``"host"`` or ``"roi"`` (the threshold on the
-    host); every mode gives the same detections.  ``device=None`` is the
+    host), which give the same detections, or ``"pure"`` (the components
+    and candidates on the card too).  ``mesh``: a ``DeviceMesh`` of
+    :mod:`vican_torch.parallel`; call on every rank, each runs its share of
+    every batch and all return the whole dict.  ``device=None`` is the
     CUDA card (raises without one); ``device="cpu"`` runs the plain versions
     of the kernels.
 

@@ -30,8 +30,22 @@ a slow host link.  ``roi`` with the ``subpix`` refiner runs the ``device``
 program, as in the JAX package.  Every mode gives the same detections for
 an integral ``thresh_const`` (the default, 10); for another the host
 threshold compares in float64 and the kernel in float32, as in the JAX
-package.  The ``pure`` mode and ``mesh=`` are not ported yet (ROADMAP
-section 1).
+package.
+
+The ``"pure"`` mode keeps the whole detection on the device
+(``vican_tpu.ops.detect.detect_markers``): steps 3-4 become the
+connected components, quad extraction and degenerate re-fit of
+:func:`vican_torch.ops.detect.device_candidates` on the unpacked kernel
+masks, and nothing but the packed result returns to the host.  Its
+candidates are JAX's pure-mode candidates, which differ from the host
+labeler's in tie-breaking, the row-subsampled re-fit and the dedup score
+(the quad area, not the component's), so its detections can differ from
+the other modes' at the edges of what decodes.  It is the mode taken when
+no host labeler exists (neither the C module nor scipy).
+
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` of
+:mod:`vican_torch.parallel`) splits every batch over the ranks, one card
+each; every rank returns the whole edge dict.
 
 :func:`estimate_pose_gray` is the stage that takes gray uint8 frames;
 :func:`estimate_pose_batched` decodes image files with OpenCV (imported
@@ -66,9 +80,10 @@ __all__ = [
 
 # the per-batch phases, in order (PhaseTimer names): the device program
 # runs "threshold kernel" and "masks to host", the host program "host
-# threshold"
+# threshold", the pure program "threshold kernel" and "device candidates"
+# in place of the masks' fetch and "host candidates"
 PHASES = ("upload", "threshold kernel", "masks to host", "host threshold",
-          "host candidates", "detect program", "PnP", "dict")
+          "host candidates", "device candidates", "detect program", "PnP", "dict")
 
 # the host labeler that the last quads_from_masks / quads_from_packed_masks
 # call ran: "c" (_native/fastccl.c) or "scipy"
@@ -664,9 +679,10 @@ def _unpack_pnp_result(out: np.ndarray):
 
 class _Program:
     """The per-batch program for one configuration: ``mode`` ``"device"``
-    (threshold kernel on the card, packed masks to the host) or ``"host"``
-    (host threshold on the exact frame); candidates, detect and PnP are
-    shared (vican_tpu/perception.py:1420-1681)."""
+    (threshold kernel on the card, packed masks to the host), ``"host"``
+    (host threshold on the exact frame) or ``"pure"`` (threshold kernel and
+    candidates on the card); detect and PnP are shared
+    (vican_tpu/perception.py:1158-1182, 1420-1681)."""
 
     def __init__(self, mode, aruco, marker_size, corner_refine, flags, lm_iters,
                  detector_params, device):
@@ -686,37 +702,31 @@ class _Program:
         self.params = D_.resolve_error_correction(params, aruco)
 
     def detect(self, gray_u8: torch.Tensor, quads, valid, areas):
-        """Refine, decode and dedup the host candidates over the resident
-        frames (vican_tpu/perception.py:_build_hybrid).  Only the valid
-        candidate slots are refined and decoded: the others can neither be
-        kept nor suppress a kept one."""
+        """Refine, decode and dedup the candidates (numpy arrays from the
+        host, or tensors on the device) over the resident frames
+        (:func:`vican_torch.ops.detect.detect_candidates`)."""
         from .ops import detect as D_
 
-        dev, p = self.device, self.params
-        B, Q = valid.shape
-        gray = gray_u8.to(torch.float32)
-        q = torch.from_numpy(quads).to(dev, torch.float64).reshape(B * Q, 4, 2)
-        area = torch.from_numpy(areas).to(dev)
-        idx = torch.from_numpy(np.flatnonzero(valid)).to(dev)
-        bi = idx // Q
-        refined = D_.refine_quad(gray, bi, q[idx], p)
-        ids_v, _, corners_v, ok_v = D_.decode_quads(
-            gray, bi, refined, torch.ones_like(idx, dtype=torch.bool), self.codes,
-            self.n_bits, p)
-        corners = torch.zeros_like(q).index_copy_(0, idx, corners_v)
-        ids = torch.zeros(B * Q, dtype=torch.int64, device=dev).index_copy_(0, idx, ids_v)
-        ok = torch.zeros(B * Q, dtype=torch.bool, device=dev).index_copy_(0, idx, ok_v)
-        return D_.dedup_and_compact(corners.reshape(B, Q, 4, 2), ids.reshape(B, Q),
-                                    ok.reshape(B, Q), area, p)
+        return D_.detect_candidates(gray_u8.to(torch.float32), quads, valid, areas,
+                                    self.codes, self.n_bits, self.params)
 
     def detect_frames(self, gray: np.ndarray | torch.Tensor, g: torch.Tensor, timer: PhaseTimer):
-        """Threshold, host candidates and the detect step of one batch:
-        ``gray`` uint8 ``(B, H, W)`` as given, ``g`` the same frames on the
-        device.  Returns the :class:`~vican_torch.ops.detect.Detections`."""
+        """Threshold, candidates and the detect step of one batch: ``gray``
+        uint8 ``(B, H, W)`` as given, ``g`` the same frames on the device.
+        Returns the :class:`~vican_torch.ops.detect.Detections`."""
+        from .ops import detect as D_
         from .ops.threshold import multi_threshold
 
         p = self.params
         H, W = gray.shape[1:]
+        if self.mode == "pure":
+            with timer.phase("threshold kernel"):
+                packed = multi_threshold(g, p.win_sizes, p.thresh_const)
+            with timer.phase("device candidates"):
+                quads, valid, areas = D_.device_candidates(D_.unpack_masks(packed, W), p)
+                del packed
+            with timer.phase("detect program"):
+                return self.detect(g, quads, valid, areas)
         if self.mode == "device":
             with timer.phase("threshold kernel"):
                 packed = multi_threshold(g, p.win_sizes, p.thresh_const)
@@ -755,7 +765,7 @@ def _camera_arrays(cams):
 
 
 def _has_host_ccl() -> bool:
-    """The modes of the port need a host component labeler: the C module
+    """The hybrid modes need a host component labeler: the C module
     (fastccl.c) or the bit-identical scipy.ndimage stand-in."""
     if _get_ccl() is not None:
         return True
@@ -768,20 +778,21 @@ def _has_host_ccl() -> bool:
 
 
 def _resolve_mode(pipeline_mode: str) -> str:
-    """``pipeline_mode`` as requested -> ``"device"``, ``"host"`` or
-    ``"roi"`` (vican_tpu/perception.py:1197-1211, without its environment
-    override).  ``"auto"`` is ``"device"`` here: on the card the threshold
-    kernel takes a fraction of a millisecond per batch, where the host
-    threshold costs milliseconds a frame.  Without a host labeler every
-    mode would fall back to ``"pure"``, which is not ported (ROADMAP
-    section 1 item 4)."""
+    """``pipeline_mode`` as requested -> ``"device"``, ``"host"``, ``"roi"``
+    or ``"pure"`` (vican_tpu/perception.py:1197-1211, without its
+    environment override).  ``"auto"`` is ``"device"`` here: on the card the
+    threshold kernel takes a fraction of a millisecond per batch, where the
+    host threshold costs milliseconds a frame.  Without a host labeler a
+    hybrid mode falls back to ``"pure"`` with a warning, as in JAX."""
     if pipeline_mode not in ("auto", "roi", "device", "host", "pure"):
         raise ValueError(f"unknown perception pipeline mode: {pipeline_mode!r}")
     mode = "device" if pipeline_mode == "auto" else pipeline_mode
-    if mode == "pure" or not _has_host_ccl():
-        raise NotImplementedError(
-            "pipeline_mode='pure' (the whole detection as one device program, the fallback "
-            "without a host labeler) is not ported yet (ROADMAP section 1 item 4)")
+    if mode != "pure" and not _has_host_ccl():
+        import warnings
+
+        warnings.warn("no host component labeler (fastccl/scipy); "
+                      "falling back to the pure-device path")
+        return "pure"
     return mode
 
 
@@ -796,12 +807,18 @@ def _program_mode(mode: str, corner_refine: str) -> str:
     return mode
 
 
-def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool) -> dict:
+def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool,
+           part=(0, 1)) -> tuple[dict, list]:
     """Run ``(files, cams, gray (nb, H, W) uint8)`` batches through
     ``program``, in order: a tail batch is padded to ``B`` frames with
     copies of its last frame and camera (vican_tpu/perception.py:1343-1345)
-    and only its ``nb`` real frames enter the dict."""
+    and only its ``nb`` real frames enter the dict.  ``part = (rank,
+    world)``: this process runs only the rank's ``B / world`` frames of
+    every batch.  Returns the dict and its keys batch by batch."""
     out: dict = {}
+    order: list = []
+    rank, world = part
+    Bs = B // world
     Dcap = program.params.max_detections
     total = 0
     for bi, (files, cams, gray) in enumerate(batches):
@@ -813,8 +830,12 @@ def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool) -> d
             else:
                 gray = np.concatenate([gray, np.repeat(gray[-1:], pad, axis=0)])
             cams = list(cams) + [cams[-1]] * pad
+        lo = rank * Bs
+        files, cams, gray = files[lo:lo + Bs], cams[lo:lo + Bs], gray[lo:lo + Bs]
+        nb = max(0, min(nb - lo, Bs))
         Ks, dists = _camera_arrays(cams)
         result = program.run(gray, Ks, dists, timer)
+        keys = []
         with timer.phase("dict"):
             corners, ids, ok, R, t, err = _unpack_pnp_result(result)
             for j in range(nb):
@@ -829,13 +850,34 @@ def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool) -> d
                         "reprojected_err": float(err[e]),
                         "im_filename": files[j],
                     }
+                    keys.append(key)
                     total += 1
+        order.append(keys)
         if verbose:
             print(f"  batch {bi}: {nb} images, {int(ok[: nb * Dcap].sum())} detections")
     if verbose:
         n_images = len({v["im_filename"] for v in out.values()})
         print(f"Found markers in {n_images} images ({total} detections).")
-    return out
+    return out, order
+
+
+def _gather_edges(mesh, out: dict, order: list) -> dict:
+    """Every rank's edges, merged on every rank in the order of a run on
+    one card: batch by batch, and within a batch rank by rank (the ranks
+    hold consecutive frames)."""
+    import torch.distributed as dist
+
+    from .parallel.sharded import _group
+
+    group, _, world, _ = _group(mesh)
+    parts = [None] * world
+    dist.all_gather_object(parts, (out, order), group=group)
+    merged: dict = {}
+    for bi in range(len(order)):
+        for part_out, part_order in parts:
+            for key in part_order[bi]:
+                merged[key] = part_out[key]
+    return merged
 
 
 def estimate_pose_gray(
@@ -860,9 +902,9 @@ def estimate_pose_gray(
     the detections (``"<parent dir>_<marker>"``, :func:`gen_marker_uid`).
 
     ``pipeline_mode``: ``"auto"`` (= ``"device"``), ``"device"``,
-    ``"host"`` or ``"roi"`` (module docstring); all give the same
-    detections.  ``device=None`` is the CUDA card (raises without one).
-    ``timer`` collects the per-batch phases (:data:`PHASES`)."""
+    ``"host"``, ``"roi"`` (these give the same detections) or ``"pure"``
+    (module docstring).  ``device=None`` is the CUDA card (raises without
+    one).  ``timer`` collects the per-batch phases (:data:`PHASES`)."""
     mode = _resolve_mode(pipeline_mode)
     device = resolve_device(device)
     no_tf32()
@@ -875,7 +917,7 @@ def estimate_pose_gray(
     B = batch_size
     batches = ((im_filenames[s:s + B], cams[s:s + B], gray[s:s + B])
                for s in range(0, len(im_filenames), B))
-    return _edges(batches, B, program, timer, verbose)
+    return _edges(batches, B, program, timer, verbose)[0]
 
 
 def estimate_pose_batched(
@@ -901,14 +943,21 @@ def estimate_pose_batched(
     OpenCV, then the batches of :func:`estimate_pose_gray`).
 
     ``pipeline_mode``: ``"auto"`` (= ``"device"``), ``"device"``,
-    ``"host"`` or ``"roi"`` (module docstring); ``"pure"`` is not ported
-    yet.  Cameras of different resolutions are grouped and their dicts
-    merged, as in the JAX package.  Returns the reference edge dict.
+    ``"host"``, ``"roi"`` or ``"pure"`` (module docstring).  ``mesh``: a
+    ``DeviceMesh`` of :mod:`vican_torch.parallel` (anything else raises
+    ``TypeError``), called on every rank: the batch is rounded up to a
+    multiple of the ranks, each rank decodes every batch and runs its share
+    of it on its own card, and every rank returns the whole dict, in the
+    order of a run on one card (vican_tpu/perception.py:1302-1321).
+    Cameras of different resolutions are grouped and their dicts merged, as
+    in the JAX package.  Returns the reference edge dict.
     """
     mode = _resolve_mode(pipeline_mode)
+    world = 1
     if mesh is not None:
-        raise NotImplementedError("mesh= (data parallelism over cards) is not ported yet "
-                                  "(ROADMAP section 1)")
+        from .parallel.sharded import _group
+
+        _, rank, world, _ = _group(mesh)
     device = resolve_device(device)
     no_tf32()
 
@@ -930,13 +979,13 @@ def estimate_pose_batched(
             out_all.update(estimate_pose_batched(
                 fns, cs, aruco, marker_size, corner_refine, brightness, contrast, flags,
                 batch_size=batch_size, lm_iters=lm_iters, detector_params=detector_params,
-                pipeline_mode=mode, verbose=verbose, device=device, timer=timer))
+                mesh=mesh, pipeline_mode=mode, verbose=verbose, device=device, timer=timer))
         return out_all
 
     program = _Program(_program_mode(mode, corner_refine), aruco, marker_size,
                        corner_refine, flags, lm_iters, detector_params, device)
     timer = timer or PhaseTimer(verbose=False, device=device)
-    B = batch_size
+    B = -(-batch_size // world) * world
     gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
 
     def batches():
@@ -952,4 +1001,7 @@ def estimate_pose_batched(
                 images, float(brightness), float(contrast))
             yield files, bcams, gray
 
-    return _edges(batches(), B, program, timer, verbose)
+    if mesh is None:
+        return _edges(batches(), B, program, timer, verbose)[0]
+    out, order = _edges(batches(), B, program, timer, verbose, part=(rank, world))
+    return _gather_edges(mesh, out, order)

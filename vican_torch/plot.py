@@ -52,34 +52,38 @@ def detect_and_draw(
 ) -> np.ndarray:
     """Detect markers in one image and overlay them (plot.py:51-105).
 
-    The image goes through the detection of the port's default perception
-    mode on ``device`` (``None``: the CUDA card, where the threshold kernel
-    runs; raises without one), with the edge producer's parameters and the
-    requested corner refinement.  Prints the sorted ids found and returns
-    the preprocessed gray image as 3 channels with the overlays.
+    As in the JAX package, the preprocessed frame goes through
+    :func:`vican_torch.ops.detect.detect_markers`, the ``pure`` detection,
+    on ``device`` (``None``: the CUDA card, where the threshold kernel
+    runs; raises without one), with the default detector parameters and
+    the requested corner refinement.  Prints the sorted ids found and
+    returns the preprocessed gray image as 3 channels with the overlays.
     """
     import cv2 as cv
     import torch
 
-    from .perception import _Program, host_preprocess
-    from .utils import PhaseTimer, no_tf32, resolve_device
+    from .ops import detect as D_
+    from .ops.dictionary import get_dictionary, marker_bits_table
+    from .utils import no_tf32, resolve_device
+    from .utils.registry import CORNER_REFINE, resolve
 
     im = cv.imread(im_filename)
     if im is None:
         raise FileNotFoundError(im_filename)
     dev = resolve_device(device)
     no_tf32()
-    gray = host_preprocess(im[None], float(brightness), float(contrast))
-    # marker size, PnP flags and LM iterations do not enter the detection
-    program = _Program("device", aruco, 1.0, corner_refine, "SOLVEPNP_IPPE_SQUARE", 0, None,
-                       dev)
-    det = program.detect_frames(gray, torch.from_numpy(gray).to(dev),
-                                PhaseTimer(verbose=False, device=dev))
+    _, n_bits = get_dictionary(aruco)
+    params = D_.DetectorParams()._replace(
+        corner_refine=resolve(CORNER_REFINE, corner_refine, "corner_refine"))
+    params = D_.resolve_error_correction(params, aruco)
+    gray = D_.preprocess(torch.from_numpy(im).to(dev), brightness, contrast)
+    det = D_.detect_markers(gray, marker_bits_table(aruco), n_bits, params, device=dev)
+    gray = gray.to(torch.uint8).cpu().numpy()[None]
 
     vis = np.stack((gray[0],) * 3, axis=2)
-    valid = det.valid[0].cpu().numpy()
-    ids = det.ids[0].cpu().numpy()
-    corners = det.corners[0].cpu().numpy()
+    valid = det.valid.cpu().numpy()
+    ids = det.ids.cpu().numpy()
+    corners = det.corners.cpu().numpy()
     found = []
     for i in np.flatnonzero(valid):
         vis = draw_marker(vis, corners[i], str(int(ids[i])))

@@ -24,6 +24,12 @@ live on:
 Callers turn TF32 off (:func:`vican_torch.utils.no_tf32`): every product
 here needs true float32.  On a CUDA device the scatter-adds are atomic, so
 their sums are ordered differently from run to run.
+
+The edge-sum stages take ``reduce``, a callable that sums a tensor over the
+ranks of a process group in place (:mod:`vican_torch.parallel.sharded`):
+with the edges split over the ranks, each sum over edges (degrees, the
+block operator, the CG system) is reduced once it is formed, and the
+camera state is then replicated, so every rank takes the same loop exits.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ __all__ = [
     "fold_constraints_small",
     "so3_sync",
     "so3_sync_small",
+    "se3sync_full",
     "translation_rhs",
     "solve_translations_cg",
     "solve_translations_lsqr",
@@ -176,7 +183,7 @@ def so3_sync_small(KR, k_r, i_idx, j_idx, *, n: int, maxiter: int):
 
 
 def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,
-             cert_tol=1e-6) -> SyncResult:
+             cert_tol=1e-6, reduce=None) -> SyncResult:
     """Primal-dual SO(3) synchronization over the camera power graph.
 
     Faithful to ``large_bipartite_so3sync`` (bipgo.py:145-350): degree-dual
@@ -186,13 +193,17 @@ def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,
     holds at the top of an iteration (bipgo.py:283-284).
 
     ``KR (E,3,3)`` folded blocks, ``k_r (E,)`` weights, ``cam_idx``/
-    ``time_idx (E,)`` node indices, all on one device.
+    ``time_idx (E,)`` node indices, all on one device; ``reduce`` (module
+    docstring) sums the degrees and the block operator over the ranks.
     """
     no_tf32()
     dtype, dev = KR.dtype, KR.device
     deg_t = torch.zeros(T, dtype=dtype, device=dev).index_add_(0, time_idx, k_r)
     deg_c = torch.zeros(C, dtype=dtype, device=dev).index_add_(0, cam_idx, k_r)
     B = block_matrix(KR, cam_idx, time_idx, C, T)
+    if reduce is not None:
+        for x in (deg_t, deg_c, B):
+            reduce(x)
 
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     lbd_t = eye3 / torch.clamp_min(deg_t, 1e-30)[:, None, None]
@@ -286,14 +297,17 @@ def _normal_matvec(x, k_t2, cam_idx, time_idx, C, T):
 _DENSE_ADJ_BUDGET_BYTES = int(1 << 30)
 
 
-def _make_normal_mv(k_t2, cam_idx, time_idx, C, T):
+def _make_normal_mv(k_t2, cam_idx, time_idx, C, T, reduce=None):
     """CG matvec for ``A^T A = blockdiag(deg) - W``, with the (C, T)
     adjacency ``W`` materialized once when it fits the budget (two thin
-    GEMMs per iteration instead of two scatters)."""
+    GEMMs per iteration instead of two scatters).  ``reduce`` sums ``W``,
+    or else every product, over the ranks."""
     dtype, dev = k_t2.dtype, k_t2.device
     if C * T * k_t2.element_size() <= _DENSE_ADJ_BUDGET_BYTES:
         W = torch.zeros(C * T, dtype=dtype, device=dev)
         W.index_add_(0, cam_idx.long() * T + time_idx, k_t2)
+        if reduce is not None:
+            reduce(W)
         W = W.view(C, T)
         deg_c = W.sum(dim=1)
         deg_t = W.sum(dim=0)
@@ -305,15 +319,18 @@ def _make_normal_mv(k_t2, cam_idx, time_idx, C, T):
             return torch.cat([yc, yt], dim=0)
 
         return mv
+    if reduce is not None:
+        return lambda x: reduce(_normal_matvec(x, k_t2, cam_idx, time_idx, C, T))
     return lambda x: _normal_matvec(x, k_t2, cam_idx, time_idx, C, T)
 
 
-def _translation_normal_rhs(t_tilde, k_t, cam_idx, time_idx, C, T):
+def _translation_normal_rhs(t_tilde, k_t, cam_idx, time_idx, C, T, reduce=None):
     kt = k_t[:, None] * t_tilde
     z = dict(dtype=t_tilde.dtype, device=t_tilde.device)
     atb_c = -torch.zeros((C, 3), **z).index_add_(0, cam_idx, kt)
     atb_t = torch.zeros((T, 3), **z).index_add_(0, time_idx, kt)
-    return torch.cat([atb_c, atb_t], dim=0)
+    out = torch.cat([atb_c, atb_t], dim=0)
+    return out if reduce is None else reduce(out)
 
 
 def _cg(mv, b, tol, maxiter):
@@ -341,14 +358,15 @@ def _cg(mv, b, tol, maxiter):
 
 
 def solve_translations_cg(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
-                          tol=1e-5, maxiter=None):
+                          tol=1e-5, maxiter=None, reduce=None):
     """CG on the normal equations (bipgo.py:476-478), from ``x0 = 0`` with
     relative tolerance ``tol``.  The system is singular (global translation
     gauge) but consistent; CG stays in the range space, like the reference.
+    ``reduce`` sums the right-hand side and the operator over the ranks.
     Returns ``(x (C+T, 3), relative residual)``."""
     no_tf32()
-    b = _translation_normal_rhs(t_tilde, k_t, cam_idx, time_idx, C, T)
-    mv = _make_normal_mv(k_t * k_t, cam_idx, time_idx, C, T)
+    b = _translation_normal_rhs(t_tilde, k_t, cam_idx, time_idx, C, T, reduce)
+    mv = _make_normal_mv(k_t * k_t, cam_idx, time_idx, C, T, reduce)
     x = _cg(mv, b, tol, maxiter)
     res = torch.linalg.vector_norm(mv(x) - b) / torch.clamp_min(
         torch.linalg.vector_norm(b), 1e-30)
@@ -356,12 +374,14 @@ def solve_translations_cg(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
 
 
 def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
-                            atol=1e-8, btol=1e-8, maxiter=None):
+                            atol=1e-8, btol=1e-8, maxiter=None, reduce=None):
     """LSQR (Paige & Saunders) on the incidence operator, one coordinate
     column at a time; the reference's "direct" path
     (``scipy.sparse.linalg.lsqr``, bipgo.py:479-480).  Stops on SciPy's
     test 2, ``|A^T r| <= atol |A| |r|``: running past Krylov exhaustion on
-    the rank-deficient system makes the recurrences diverge."""
+    the rank-deficient system makes the recurrences diverge.  ``reduce``
+    sums the node-space products and the edge-space norms over the ranks."""
+    red = reduce or (lambda x: x)
     no_tf32()
     N = C + T
     if maxiter is None:
@@ -373,16 +393,19 @@ def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
 
     def At_col(y):  # (E,) -> (N,)
         ky = k_t * y
-        return torch.cat([
+        return red(torch.cat([
             -torch.zeros(C, dtype=dtype, device=dev).index_add_(0, cam_idx, ky),
             torch.zeros(T, dtype=dtype, device=dev).index_add_(0, time_idx, ky),
-        ])
+        ]))
 
     def norm(v):
         return torch.linalg.vector_norm(v)
 
+    def norm_e(v):  # a norm over the (split) edges
+        return norm(v) if reduce is None else torch.sqrt(reduce(torch.sum(v * v)))
+
     def lsqr_1d(b):
-        beta0 = norm(b)
+        beta0 = norm_e(b)
         u = b / torch.clamp_min(beta0, 1e-30)
         v = At_col(u)
         alpha = norm(v)
@@ -395,7 +418,7 @@ def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
         i = 0
         while i < maxiter and bool(normar > atol * torch.sqrt(anorm2) * torch.abs(phibar) + 1e-30):
             u1 = A_col(v) - alpha * u
-            beta = norm(u1)
+            beta = norm_e(u1)
             u1 = u1 / torch.clamp_min(beta, 1e-30)
             v1 = At_col(u1) - beta * v
             alpha1 = norm(v1)
@@ -421,7 +444,30 @@ def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
         return k_t[:, None] * (x[C:][time_idx] - x[:C][cam_idx])
 
     def At(y):
-        return _translation_normal_rhs(y, k_t, cam_idx, time_idx, C, T)
+        return _translation_normal_rhs(y, k_t, cam_idx, time_idx, C, T, reduce)
 
     res = norm(At(A(x_cols) - t_tilde)) / torch.clamp_min(norm(At(t_tilde)), 1e-30)
     return x_cols, res
+
+
+def se3sync_full(R_e, t_e, k_r, k_t, cam_idx, time_idx, marker_idx, R_con, t_con, *,
+                 root_idx, C: int, T: int, maxiter: int, cg_tol=1e-5, cert_tol=1e-6,
+                 reduce=None):
+    """The whole device solve of ``bipartite_se3sync``'s dense route
+    (``vican_tpu.solver.core.se3sync_full``): fold -> :func:`so3_sync` ->
+    :func:`translation_rhs` -> CG.  Returns ``(SyncResult, poses (C+T, 4,
+    4), CG residual)``, cameras first in ``poses``.  ``reduce``: the edges
+    are split over ranks (module docstring)."""
+    KR = fold_constraints(R_e, k_r, marker_idx, R_con, root_idx)
+    result = so3_sync(KR, k_r, cam_idx, time_idx, C=C, T=T, maxiter=maxiter,
+                      cert_tol=cert_tol, reduce=reduce)
+    t_tilde = translation_rhs(result.r_cam, result.r_time, t_e, k_t, cam_idx, time_idx,
+                              marker_idx, R_con, t_con, root_idx)
+    t_est, res = solve_translations_cg(t_tilde, k_t, cam_idx, time_idx, C=C, T=T, tol=cg_tol,
+                                       reduce=reduce)
+    poses = torch.zeros((C + T, 4, 4), dtype=R_e.dtype, device=R_e.device)
+    poses[:, 3, 3] = 1.0
+    poses[:C, :3, :3] = result.r_cam
+    poses[C:, :3, :3] = result.r_time
+    poses[:, :3, 3] = t_est
+    return result, poses, res

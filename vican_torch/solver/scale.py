@@ -28,6 +28,8 @@ Laplacian through the thin-matvec kernel of :mod:`.mv`.
 
 Control flow is host Python: the ``lax.cond(it == 0, ...)`` branches are
 ``if it == 0`` and the loop reads the certificate once per iteration.
+:func:`so3_sync_large_sharded` runs the same loop with the time chunks
+split over the ranks of a ``torch.distributed`` mesh.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from .core import HIST_CAP, SyncResult, _add_block_diag, block_matrix
 from .mv import aligned_bf16, thin_mv
 from .pwr import filter_operator, pwr_apply
 
-__all__ = ["sort_edges_by_time", "so3_sync_large"]
+__all__ = ["sort_edges_by_time", "so3_sync_large", "so3_sync_large_sharded"]
 
 # Device-memory budget for the loop-invariant operator plus its bfloat16
 # filter copy (5.4 GB at 10k cameras x 10k timesteps in float32).
@@ -314,63 +316,23 @@ def _subspace_init(n, m, dtype, device):
     return X0, v0 / torch.linalg.vector_norm(v0)
 
 
-def so3_sync_large(
-    KR_s,
-    k_s,
-    cam_s,
-    tloc_s,
-    *,
-    C: int,
-    T: int,
-    chunk_t: int,
-    maxiter: int,
-    cert_tol=1e-6,
-    cheb_degree: int = 60,
-    cheb_rounds: int = 2,
-    cheb_degree_warm: int = 28,
-    subspace: int = 10,
-    filter_dtype: str = "auto",
-    polish_deg: int = 6,
-    materialize_budget: int = _MATERIALIZE_BUDGET_BYTES,
-    device=None,
-) -> SyncResult:
-    """Primal-dual SO(3) sync without the dense (C, 3, T, 3) block tensor
-    and without ever forming the (3C, 3C) power graph.
-
-    Inputs are the chunked edge arrays of :func:`sort_edges_by_time` (NumPy
-    or tensors).  The first iteration runs the full Chebyshev budget
-    (``cheb_degree`` x ``cheb_rounds``); later ones start from the warm
-    subspace with one ``cheb_degree_warm`` pass.  Mathematically the same
-    iteration as :func:`vican_torch.solver.core.so3_sync` (same
-    initialization, update order and certificate).  ``device`` defaults to
-    the CUDA card.
-    """
-    device = resolve_device(device)
-    no_tf32()
-    KR_s = torch.as_tensor(KR_s, device=device)
-    dtype = KR_s.dtype
-    k_s = torch.as_tensor(k_s, device=device).to(dtype)
-    cam_s = torch.as_tensor(cam_s, device=device).long()
-    tloc_s = torch.as_tensor(tloc_s, device=device).long()
-    f_dtype = _resolve_filter_dtype(filter_dtype, dtype)
-    n_chunks = cam_s.shape[0]
-    T_pad = n_chunks * chunk_t
+def _sync_loop(prepare, time_products, deg_c, deg_t, *, C, maxiter, cert_tol, cheb_degree,
+               cheb_rounds, cheb_degree_warm, subspace, pol):
+    """The primal-dual iteration of the large-graph route, shared by
+    :func:`so3_sync_large` and :func:`so3_sync_large_sharded`: ``prepare``/
+    ``time_products`` are :func:`_make_operator`'s closures (or their
+    sharded wrappers), ``deg_c (C,)`` the camera degrees, ``deg_t`` the
+    degrees of the time nodes the closures cover.  The loop's host test
+    reads only ``evals5``, which comes from the (reduced) full products, so
+    every rank of a sharded solve leaves on the same iteration.  Returns
+    ``(iterations, r_c, r_t, evals5, eigengap, ev_hist, gap_hist)``."""
+    dtype, device = deg_c.dtype, deg_c.device
     n = 3 * C
-
-    gtime = (torch.arange(n_chunks, device=device)[:, None] * chunk_t + tloc_s).reshape(-1)
-    deg_t = torch.zeros(T_pad, dtype=dtype, device=device).index_add_(0, gtime, k_s.reshape(-1))
-    deg_c = torch.zeros(C, dtype=dtype, device=device).index_add_(
-        0, cam_s.reshape(-1), k_s.reshape(-1))
-    prepare, time_products = _make_operator(
-        KR_s, cam_s, tloc_s, C=C, chunk_t=chunk_t, f_dtype=f_dtype,
-        budget=materialize_budget,
-    )
-
     eye3 = torch.eye(3, dtype=dtype, device=device)
     lbd_t = eye3 / torch.clamp_min(deg_t, 1e-30)[:, None, None]
     lbd_c = deg_c[:, None, None] * eye3
     r_c = eye3.expand(C, 3, 3)
-    r_t = eye3.expand(T_pad, 3, 3)
+    r_t = eye3.expand(deg_t.shape[0], 3, 3)
     evals5 = torch.zeros(5, dtype=dtype, device=device)
     eigengap = torch.zeros((), dtype=dtype, device=device)
     ev_hist = torch.zeros(HIST_CAP, 5, dtype=dtype, device=device)
@@ -378,7 +340,6 @@ def so3_sync_large(
     X, vmax = _subspace_init(n, subspace, dtype, device)
     lmax_raw_prev = torch.zeros((), dtype=dtype, device=device)
     a_raw_prev = torch.zeros((), dtype=dtype, device=device)
-    pol = polish_deg if f_dtype is not None else 0
 
     it, max_eval = 0, 1.0
     while it < maxiter and max_eval > cert_tol:
@@ -440,9 +401,166 @@ def so3_sync_large(
         it += 1
         max_eval = float(torch.abs(evals5).max())
 
+    return it, r_c, r_t, evals5, eigengap, ev_hist, gap_hist
+
+
+def so3_sync_large(
+    KR_s,
+    k_s,
+    cam_s,
+    tloc_s,
+    *,
+    C: int,
+    T: int,
+    chunk_t: int,
+    maxiter: int,
+    cert_tol=1e-6,
+    cheb_degree: int = 60,
+    cheb_rounds: int = 2,
+    cheb_degree_warm: int = 28,
+    subspace: int = 10,
+    filter_dtype: str = "auto",
+    polish_deg: int = 6,
+    materialize_budget: int = _MATERIALIZE_BUDGET_BYTES,
+    device=None,
+) -> SyncResult:
+    """Primal-dual SO(3) sync without the dense (C, 3, T, 3) block tensor
+    and without ever forming the (3C, 3C) power graph.
+
+    Inputs are the chunked edge arrays of :func:`sort_edges_by_time` (NumPy
+    or tensors).  The first iteration runs the full Chebyshev budget
+    (``cheb_degree`` x ``cheb_rounds``); later ones start from the warm
+    subspace with one ``cheb_degree_warm`` pass.  Mathematically the same
+    iteration as :func:`vican_torch.solver.core.so3_sync` (same
+    initialization, update order and certificate).  ``device`` defaults to
+    the CUDA card.
+    """
+    device = resolve_device(device)
+    no_tf32()
+    KR_s, k_s, cam_s, tloc_s = _chunks_on(device, KR_s, k_s, cam_s, tloc_s)
+    dtype = KR_s.dtype
+    f_dtype = _resolve_filter_dtype(filter_dtype, dtype)
+    deg_t, deg_c = _degrees(k_s, cam_s, tloc_s, C, chunk_t)
+    prepare, time_products = _make_operator(
+        KR_s, cam_s, tloc_s, C=C, chunk_t=chunk_t, f_dtype=f_dtype,
+        budget=materialize_budget,
+    )
+    it, r_c, r_t, evals5, eigengap, ev_hist, gap_hist = _sync_loop(
+        prepare, time_products, deg_c, deg_t, C=C, maxiter=maxiter, cert_tol=cert_tol,
+        cheb_degree=cheb_degree, cheb_rounds=cheb_rounds, cheb_degree_warm=cheb_degree_warm,
+        subspace=subspace, pol=polish_deg if f_dtype is not None else 0)
     return SyncResult(
         r_cam=r_c.transpose(-1, -2),
         r_time=r_t[:T].transpose(-1, -2),
+        evals=evals5,
+        eigengap=eigengap,
+        num_iters=it,
+        evals_hist=ev_hist,
+        gap_hist=gap_hist,
+    )
+
+
+def _chunks_on(device, KR_s, k_s, cam_s, tloc_s):
+    """The chunked edge arrays as tensors on ``device``: ``KR_s`` in its
+    dtype, ``k_s`` in the same, the indices as int64."""
+    KR_s = torch.as_tensor(KR_s, device=device)
+    return (KR_s, torch.as_tensor(k_s, device=device).to(KR_s.dtype),
+            torch.as_tensor(cam_s, device=device).long(),
+            torch.as_tensor(tloc_s, device=device).long())
+
+
+def _degrees(k_s, cam_s, tloc_s, C: int, chunk_t: int):
+    """``(deg_t (n_chunks * chunk_t,), deg_c (C,))`` of chunked edges."""
+    n_chunks = cam_s.shape[0]
+    dtype, device = k_s.dtype, k_s.device
+    gtime = (torch.arange(n_chunks, device=device)[:, None] * chunk_t + tloc_s).reshape(-1)
+    deg_t = torch.zeros(n_chunks * chunk_t, dtype=dtype, device=device).index_add_(
+        0, gtime, k_s.reshape(-1))
+    deg_c = torch.zeros(C, dtype=dtype, device=device).index_add_(
+        0, cam_s.reshape(-1), k_s.reshape(-1))
+    return deg_t, deg_c
+
+
+def so3_sync_large_sharded(
+    KR_s,
+    k_s,
+    cam_s,
+    tloc_s,
+    *,
+    C: int,
+    T: int,
+    chunk_t: int,
+    maxiter: int,
+    mesh,
+    cert_tol=1e-6,
+    cheb_degree: int = 60,
+    cheb_rounds: int = 2,
+    cheb_degree_warm: int = 28,
+    subspace: int = 10,
+    filter_dtype: str = "auto",
+    polish_deg: int = 6,
+    materialize_budget: int = _MATERIALIZE_BUDGET_BYTES,
+    device=None,
+) -> SyncResult:
+    """:func:`so3_sync_large` with the time chunks split over the ranks of
+    ``mesh`` (a 1-D ``DeviceMesh``, :mod:`vican_torch.parallel`;
+    ``vican_tpu.solver.scale.so3_sync_large_sharded``).
+
+    Every rank is given the whole chunked problem, pads the chunk axis to a
+    multiple of the world size with zero-weight chunks and keeps its own
+    contiguous share.  It builds its local operator with
+    :func:`_make_operator`, so the filter products run on the ``pwr_apply``
+    kernel on every card; every graph product all-reduces the (3C, w)
+    partials, and the replicated ``Lambda_C`` block diagonal enters after
+    the reduce.  Camera degrees are reduced, time degrees and duals stay
+    local; the time rotations are gathered at the end.  The camera state is
+    replicated.  Returns device tensors, like :func:`so3_sync_large`."""
+    import torch.distributed as dist
+
+    from ..parallel.sharded import _group
+
+    device = resolve_device(device)
+    no_tf32()
+    group, rank, world, reduce = _group(mesh)
+    arrays = [np.asarray(a) if not isinstance(a, torch.Tensor) else a.cpu().numpy()
+              for a in (KR_s, k_s, cam_s, tloc_s)]
+    n_chunks = arrays[0].shape[0]
+    pad = (-n_chunks) % world
+    if pad:
+        arrays = [np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]) for a in arrays]
+    local = (n_chunks + pad) // world
+    mine = slice(rank * local, (rank + 1) * local)
+    KR_l, k_l, cam_l, tloc_l = _chunks_on(device, *(a[mine] for a in arrays))
+    dtype = KR_l.dtype
+    f_dtype = _resolve_filter_dtype(filter_dtype, dtype)
+    deg_t, deg_c = _degrees(k_l, cam_l, tloc_l, C, chunk_t)
+    reduce(deg_c)
+    local_prepare, time_products = _make_operator(
+        KR_l, cam_l, tloc_l, C=C, chunk_t=chunk_t, f_dtype=f_dtype,
+        budget=materialize_budget,
+    )
+
+    def prepare(lbd_c, lbd_t, inv_scale):
+        # the local closures see Lambda_C = 0: its block diagonal is
+        # replicated and enters once, after the reduce
+        l_full, l_filt, l_polish, l_pwr = local_prepare(torch.zeros_like(lbd_c), lbd_t,
+                                                        inv_scale)
+
+        def total(local_mv):
+            return lambda X: reduce(local_mv(X)) + _blockdiag_mv(lbd_c, X) * inv_scale
+
+        return (total(l_full), total(l_filt), total(l_polish),
+                lambda X: reduce(l_pwr(X)))
+
+    it, r_c, r_t, evals5, eigengap, ev_hist, gap_hist = _sync_loop(
+        prepare, time_products, deg_c, deg_t, C=C, maxiter=maxiter, cert_tol=cert_tol,
+        cheb_degree=cheb_degree, cheb_rounds=cheb_rounds, cheb_degree_warm=cheb_degree_warm,
+        subspace=subspace, pol=polish_deg if f_dtype is not None else 0)
+    parts = [torch.empty_like(r_t) for _ in range(world)]
+    dist.all_gather(parts, r_t.contiguous(), group=group)
+    return SyncResult(
+        r_cam=r_c.transpose(-1, -2),
+        r_time=torch.cat(parts)[:T].transpose(-1, -2),
         evals=evals5,
         eigengap=eigengap,
         num_iters=it,
