@@ -30,6 +30,10 @@ device split, then drives two paths:
   ``bipartite_se3sync`` on them must recover all 8 cameras; then the
   ``host`` mode (host threshold, no kernel launch) over the same frames and
   ``roi`` and ``auto`` over 64 of them must give the same edges; then the
+  feed/drain pipeline (:func:`pipeline_phase`: the default depth and depth
+  1 in turns, identical edges, each run's feed, drain and overlap seconds;
+  the frames as JPEG files through ``cam.estimate_pose_mp`` where cv2
+  imports; a ``torch.profiler`` trace of 96 frames); then the
   ``pure`` mode (:func:`pure_phase`: the components, candidates and re-fit
   on the card too) over those 64 frames, held to the ``device`` run and to
   the CPU;
@@ -70,7 +74,9 @@ same, runs the perception phases and :func:`pure_phase`, with ``--save
 PATH`` writes the pure phase's frames and both modes' edges to ``PATH``
 (:func:`save_pure_frames`), and stops;
 ``--mesh`` builds ``pwr.cu`` and the C modules, runs :func:`mesh_phase`,
-and stops.
+and stops; ``--pipeline`` builds the threshold kernel and the C modules,
+renders the perception scene, runs it once to warm up, then
+:func:`pipeline_phase`, and stops.
 """
 from __future__ import annotations
 
@@ -254,6 +260,21 @@ def _check_packer() -> None:
         raise AssertionError(f"packed by the {_last_packer()} packer, not the C one")
 
 
+@contextlib.contextmanager
+def _env(**env):
+    """Environment variables set for the body, restored after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def solve(prob, **env):
     """One timed bipartite_se3sync call, packed by the C packer; returns
     (poses, seconds, log lines)."""
@@ -261,10 +282,8 @@ def solve(prob, **env):
 
     from vican_torch import bipgo
 
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     buf = io.StringIO()
-    try:
+    with _env(**env):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -275,12 +294,6 @@ def solve(prob, **env):
             )
         seconds = time.perf_counter() - t0
         _check_packer()
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     return est, seconds, buf.getvalue().splitlines()
 
 
@@ -857,7 +870,10 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     ``base`` and ``kw``: ``(edges, row)``, the row with images/s, the summed
     phase split (:data:`PHASES` of the checkout), the threshold kernel's
     launches and the labeler (a checkout without
-    ``perception.last_labeler`` has only scipy's)."""
+    ``perception.last_labeler`` has only scipy's); where the timer's
+    events carry a ``stage``, also the summed seconds of each stage, their
+    overlap (feed + drain - wall) and the seconds in which the worker's
+    host candidates and the drain's PnP ran at once."""
     import torch
 
     from vican_torch import perception
@@ -872,10 +888,23 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     seconds = time.perf_counter() - t0
     launches = multi_threshold.launches
     split = {p: sum(e["seconds"] for e in timer.events if e["name"] == p) for p in PHASES}
-    return edges, dict(frames=len(names), seconds=seconds, images_per_s=len(names) / seconds,
-                       phase_s=split, detections=len(edges), kernel_launches=launches,
-                       batches=-(-len(names) // base["batch_size"]),
-                       labeler=getattr(perception, "last_labeler", "scipy"))
+    row = dict(frames=len(names), seconds=seconds, images_per_s=len(names) / seconds,
+               phase_s=split, detections=len(edges), kernel_launches=launches,
+               batches=-(-len(names) // base["batch_size"]),
+               labeler=getattr(perception, "last_labeler", "scipy"))
+    stages: dict = {}
+    for e in timer.events:
+        if e.get("stage"):
+            stages[e["stage"]] = stages.get(e["stage"], 0.0) + e["seconds"]
+    if stages:
+        # the seconds the feed's and the drain's phases ran at once, and
+        # those of them in which the worker's candidates met the PnP
+        spans = {n: [(e["start"], e["start"] + e["seconds"]) for e in timer.events
+                     if e["name"] == n and e["stage"] == st]
+                 for n, st in (("host candidates", "feed"), ("PnP", "drain"))}
+        row.update(stage_s=stages, overlap_s=sum(stages.values()) - seconds,
+                   overlap_candidates_pnp_s=_overlap(spans["host candidates"], spans["PnP"]))
+    return edges, row
 
 
 def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
@@ -1022,6 +1051,189 @@ def perception_modes(device_run) -> None:
             faults.append(f"{name}: {d}")
     if faults:
         raise AssertionError(f"perception_modes: {faults}")
+
+
+# The default mode's detections on the scene's 384 frames on the card, the
+# same in every run (two default runs give identical edges)
+P_DETECTIONS = 3377
+
+
+def _intervals(spans) -> list:
+    """The union of ``(start, end)`` spans as sorted disjoint spans."""
+    out: list = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap(a, b) -> float:
+    """The length of the intersection of two unions of spans."""
+    a, b = _intervals(a), _intervals(b)
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _kernels_under(event) -> int:
+    """CUDA kernels launched by the operators under a host range of a
+    ``torch.profiler`` trace (the profiler links each kernel to the
+    operator that launched it)."""
+    stack, n = list(event.cpu_children), 0
+    while stack:
+        e = stack.pop()
+        n += len(e.kernels)
+        stack.extend(e.cpu_children)
+    return n
+
+
+TRACE_FRAMES = 96  # 3 of the scene's 12 batches; see pipeline_trace
+
+
+def pipeline_trace(frames, names, frame_cams) -> dict:
+    """A warm pipelined run of the scene's first :data:`TRACE_FRAMES`
+    frames under ``torch.profiler``, its phases as named ranges
+    (``PhaseTimer(trace=True)``), on every thread where this torch can
+    record them (``profile_all_threads``): the device busy share over the
+    run and the top kernels (:func:`_trace_summary`), the CUDA kernels
+    launched per batch in the ``PnP`` and ``detect program`` ranges, and
+    how long the worker's ``host candidates`` ranges (the labeler) overlap
+    the calling thread's ``PnP`` ranges, from the trace where it holds the
+    worker's ranges and from the timer's events in any case.  Three
+    batches, not twelve: a batch launches ~1e4 kernels, each with its host
+    operators, and the profiler's parse of a whole run's events would take
+    minutes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vican_torch.perception import estimate_pose_gray
+    from vican_torch.utils import PhaseTimer
+
+    extra: dict = {}
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        extra["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        pass
+    frames, names, frame_cams = (frames[:TRACE_FRAMES], names[:TRACE_FRAMES],
+                                 frame_cams[:TRACE_FRAMES])
+    timer = PhaseTimer(verbose=False, trace=True, device=torch.device("cuda"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **extra) as prof:
+        with record_function("pipelined P"):
+            t0 = time.perf_counter()
+            edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **PERCEPTION_KW)
+            seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = _trace_summary(prof, "pipelined P", "threshold")
+    ranges: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in ("PnP", "detect program",
+                                                          "host candidates"):
+            ranges.setdefault(e.name, []).append(e)
+    batches = -(-len(names) // PERCEPTION_KW["batch_size"])
+    span = lambda e: (e.time_range.start * 1e-6, e.time_range.end * 1e-6)
+    # the labeler's ranges on the worker; the candidates' gates run on the
+    # calling thread, between its PnP ranges
+    drain_threads = {e.thread for e in ranges.get("PnP", [])}
+    ranges["host candidates"] = [e for e in ranges.get("host candidates", [])
+                                 if e.thread not in drain_threads]
+    # (an in-order checkout's events have neither stage nor start)
+    timer_spans = {n: [(e["start"], e["start"] + e["seconds"]) for e in timer.events
+                       if e["name"] == n and e.get("stage") == st]
+                   for n, st in (("PnP", "drain"), ("host candidates", "feed"))}
+    row = dict(
+        profile_all_threads=bool(extra), seconds=seconds, detections=len(edges),
+        ranges={n: len(v) for n, v in ranges.items()},
+        launches_per_batch={n: sum(_kernels_under(e) for e in v) / batches
+                            for n, v in ranges.items() if n != "host candidates"},
+        overlap_candidates_pnp_trace_s=(
+            _overlap([span(e) for e in ranges["host candidates"]],
+                     [span(e) for e in ranges["PnP"]])
+            if ranges["host candidates"] and "PnP" in ranges else None),
+        overlap_candidates_pnp_timer_s=_overlap(timer_spans["host candidates"],
+                                                timer_spans["PnP"]),
+        candidates_s=sum(e - s for s, e in timer_spans["host candidates"]),
+        pnp_s=sum(e - s for s, e in timer_spans["PnP"]),
+        trace_read_s=time.perf_counter() - t0, **summary)
+    return row
+
+
+def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
+    """Perception's feed/drain pipeline over the scene's frames (host
+    arrays, as decoded files would be): the default depth and
+    ``VICAN_TPU_PIPELINE_DEPTH=1`` in turns (default, 1, default), each
+    with its images/s, the summed seconds of the feed's and the drain's
+    phases and their overlap (feed + drain - wall); every run must give
+    the same edges, identical, with :data:`P_DETECTIONS` detections, one
+    threshold launch per batch and the C labeler, and those of
+    ``device_edges`` where given.  Then, where cv2 imports, the frames as
+    JPEG files through ``cam.estimate_pose_mp`` against
+    ``estimate_pose_gray`` on ``load_images`` of the same files
+    (identical); then :func:`pipeline_trace`."""
+    import tempfile
+
+    runs, faults = [], []
+    ref = device_edges
+    for depth in ("", "1", ""):
+        with _env(VICAN_TPU_PIPELINE_DEPTH=depth):
+            edges, run = _perception_run(frames, names, frame_cams)
+        run["depth"] = depth or "default (2)"
+        if ref is None:
+            ref = edges
+        run["vs_reference"] = _edge_diff(ref, edges)
+        runs.append(run)
+        if not run["vs_reference"]["identical"] or len(edges) != P_DETECTIONS:
+            faults.append(f"depth {run['depth']}: {len(edges)} detections, "
+                          f"{run['vs_reference']}")
+        if run["kernel_launches"] != run["batches"] or run["labeler"] != "c":
+            faults.append(f"depth {run['depth']}: {run['kernel_launches']} launches for "
+                          f"{run['batches']} batches, labeler {run['labeler']}")
+    emit("pipeline", runs=runs)
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        emit("pipeline_files", ran=False, reason="cv2 does not import: the file path did not run")
+    else:
+        from vican_torch.cam import estimate_pose_mp
+        from vican_torch.perception import estimate_pose_gray, load_images
+
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            files = []
+            for img, name in zip(frames, names):
+                path = os.path.join(tmp, name)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                if not cv2.imwrite(path, img):
+                    raise AssertionError(f"pipeline_files: could not write {path}")
+                files.append(path)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            via_files = estimate_pose_mp(files, frame_cams, brightness=0, contrast=0,
+                                         marker_ids=None, **PERCEPTION_KW)
+            files_s = time.perf_counter() - t0
+            gray = load_images(files, grayscale=True)
+            via_gray = estimate_pose_gray(gray, files, frame_cams, **PERCEPTION_KW)
+        diff = _edge_diff(via_gray, via_files)
+        emit("pipeline_files", ran=True, frames=len(files), write_s=write_s,
+             seconds=files_s, images_per_s=len(files) / files_s, detections=len(via_files),
+             vs_gray=diff)
+        if not diff["identical"] or len(via_files) < 10 * SCENE_FRAMES:
+            faults.append(f"files: {len(via_files)} detections, {diff}")
+    if faults:
+        raise AssertionError(f"pipeline: {faults}")
+    emit("pipeline_trace", **pipeline_trace(frames, names, frame_cams))
 
 
 PURE_FRAMES = 64  # P's first two batches
@@ -1433,7 +1645,8 @@ def main() -> None:
     emit("device", kind=name, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, host_packages=host_packages)
 
-    partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial", "--pure"))
+    partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial", "--pure",
+                                          "--pipeline"))
     t0 = time.perf_counter()
     logs = _kernels.build(["threshold"] if partial else ["pwr"] if "--mesh" in sys.argv
                           else None)
@@ -1458,6 +1671,17 @@ def main() -> None:
         return
     if "--mesh" in sys.argv:
         mesh_phase()
+        return
+    if "--pipeline" in sys.argv:
+        scene = perception_scene(dev)
+        host, names, frame_cams = scene[3].cpu().numpy(), scene[4], scene[5]
+        del scene
+        torch.cuda.empty_cache()
+        # a warm-up run: the first perception of a process pays CUDA's and
+        # the allocator's start-up
+        _, warm = _perception_run(host, names, frame_cams)
+        emit("pipeline_warmup", **warm)
+        pipeline_phase(host, names, frame_cams)
         return
     if "--pure" in sys.argv:
         _, device_run = perception_phases(dev, ptxas)
@@ -1547,6 +1771,7 @@ def main() -> None:
 
     th, device_run = perception_phases(dev, ptxas)
     perception_modes(device_run)
+    pipeline_phase(*device_run)
     launches_pure = pure_phase(device_run)
     del device_run
     launches_t = tutorial_phase(dev)

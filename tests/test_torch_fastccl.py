@@ -118,8 +118,8 @@ def test_scipy_labeler_equals_c(masks, no_native):
 
 
 def test_quads_from_masks_c_and_scipy_agree(masks, monkeypatch):
-    """The unpacked entry point: the C branch (which packs each window for
-    ``quad_candidates_packed2``) and the scipy branch give the same
+    """The unpacked entry point: the C branch (which packs the batch for
+    ``quad_candidates_batch``) and the scipy branch give the same
     candidates, and the JAX function's."""
     packed, H, W = masks
     fg = np.unpackbits(packed[:2], axis=-1, bitorder="little")[..., :W]

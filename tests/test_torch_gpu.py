@@ -465,6 +465,41 @@ def test_detect_markers_on_the_card_matches_cpu(cuda):
                                rtol=0, atol=1e-3)
 
 
+@pytest.mark.gpu
+def test_pipeline_on_the_card_equals_depth_one(cuda, monkeypatch):
+    """Six frames on the card in batches of 2 (three batches): the default
+    depth gives the depth-1 run's edges bit for bit, and the feed thread
+    launched every threshold kernel on the caller's device and on a stream
+    of its own, not the caller's."""
+    from vican_torch.ops import threshold
+
+    frames, names, frame_cams = _rendered_640(cuda, 2, 7)
+    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
+              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+              batch_size=2, verbose=False)
+    seen = []
+    real = threshold.multi_threshold
+
+    def spy(g, *args, **kwargs):
+        seen.append((torch.cuda.current_device(), g.device.index,
+                     torch.cuda.current_stream(g.device)))
+        return real(g, *args, **kwargs)
+
+    spy.launches = real.launches  # the wrapper counts on the module's name
+    monkeypatch.setattr(threshold, "multi_threshold", spy)
+    caller = torch.cuda.current_stream(cuda)
+    piped = estimate_pose_gray(frames, names, frame_cams, **kw)
+    monkeypatch.setenv("VICAN_TPU_PIPELINE_DEPTH", "1")
+    one = estimate_pose_gray(frames, names, frame_cams, **kw)
+    dev = torch.cuda.current_device()
+    assert len(seen) == 6
+    assert all(d == dev and index == dev and stream != caller for d, index, stream in seen)
+    assert len(piped) > 5 and list(piped) == list(one)
+    for k in one:
+        np.testing.assert_array_equal(piped[k]["corners"], one[k]["corners"])
+        np.testing.assert_array_equal(piped[k]["pose"].pose(), one[k]["pose"].pose())
+
+
 MESH_CHILD = r"""
 import json, os, sys
 import numpy as np

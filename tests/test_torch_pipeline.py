@@ -1,0 +1,276 @@
+"""Perception's feed/drain pipeline (``vican_torch.perception._edges``, the
+port of vican_tpu/perception.py:1725-1758) on the CPU: the port's pipelined
+``estimate_pose_mp`` against the JAX package's on the same files, every
+pipeline depth against the default one, errors raised from the worker, the
+C labeler's batch entry point against its per-window calls and the JAX
+package's module, the lock around the port's C builds, and the timer's
+stages."""
+import copy
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("cv2")
+
+from vican_tpu.cam import estimate_pose_mp
+from vican_tpu.dataset import Dataset
+from vican_tpu.render import make_cube_markers, render_dataset
+from vican_torch import _native as tnative
+from vican_torch import cam as TC
+from vican_torch import perception as TP
+from vican_torch.ops.detect import DetectorParams
+from vican_torch.ops.threshold import multi_threshold
+from vican_torch.utils import PhaseTimer
+from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
+from test_torch_perception import (KW, MARKER_SIZE, _assert_identical_edges,
+                                   _assert_same_edges, _cams, _port_cams, _traj)
+from torch_threads import two_threads  # noqa: F401
+
+DRAIN = {"host candidates", "detect program", "PnP", "dict"}
+
+
+@pytest.fixture(scope="module")
+def rendered(tmp_path_factory):
+    """3 cameras (one with the 12-coefficient distortion) x 2 timesteps at
+    640x360, rendered to JPEGs by vican_tpu.render (the recipe of
+    tests/test_torch_perception.py)."""
+    root = str(tmp_path_factory.mktemp("render") / "ds")
+    render_dataset(root, _cams(distorted_last=True), _traj(2, 3), make_cube_markers(),
+                   marker_size=MARKER_SIZE, marker_px=120)
+    return Dataset(root)
+
+
+def _port(rendered, **kw):
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    return TC.estimate_pose_mp(files, cams, marker_ids=None, device="cpu", **dict(KW, **kw))
+
+
+@pytest.mark.parametrize("mode", ["device", "host", "pure"])
+def test_pipelined_port_matches_pipelined_jax(rendered, mode, two_threads):
+    """Batches of 2 (three batches, more than the default depth of 2): the
+    port's pipeline and the JAX package's give the same edges in the same
+    order, within the bars of the perception tests."""
+    files, cams = rendered.im_data["filename"], rendered.im_data["cam"]
+    ref = estimate_pose_mp(files, cams, pipeline_mode=mode, marker_ids=None,
+                           **dict(KW, batch_size=2))
+    out = _port(rendered, pipeline_mode=mode, batch_size=2)
+    _assert_same_edges(ref, out)
+    assert list(out) == list(ref)
+
+
+@pytest.fixture(scope="module")
+def default_depth(rendered):
+    """The port's edges at the default depth, per batch size."""
+    return {bs: _port(rendered, batch_size=bs) for bs in (1, 4, 8)}
+
+
+@pytest.mark.parametrize("depth", ["1", "2", "5"])
+@pytest.mark.parametrize("batch_size", [1, 4, 8], ids=["6 batches", "2 batches", "1 batch"])
+def test_every_depth_gives_identical_edges(rendered, default_depth, monkeypatch, depth,
+                                           batch_size):
+    """Depths 1, 2 and 5 over 6, 2 and 1 batches (more, as many and fewer
+    batches than the depth): the same dict, key for key and bit for bit,
+    as the default depth."""
+    monkeypatch.setenv("VICAN_TPU_PIPELINE_DEPTH", depth)
+    assert TP._pipeline_depth() == int(depth)
+    out = _port(rendered, batch_size=batch_size)
+    assert len(out) > 10
+    _assert_identical_edges(default_depth[batch_size], out)
+
+
+@pytest.mark.parametrize("value,depth", [(None, 2), ("", 2), ("0", 2), ("-3", 1), ("7", 7)])
+def test_pipeline_depth_reads_the_jax_variable(monkeypatch, value, depth):
+    """``VICAN_TPU_PIPELINE_DEPTH`` as vican_tpu/perception.py:1739 reads
+    it: unset, empty or 0 is the default 2, anything below 1 is 1."""
+    if value is None:
+        monkeypatch.delenv("VICAN_TPU_PIPELINE_DEPTH", raising=False)
+    else:
+        monkeypatch.setenv("VICAN_TPU_PIPELINE_DEPTH", value)
+    assert TP._pipeline_depth() == depth
+
+
+def _feed_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("vican-feed")]
+
+
+def test_wrong_resolution_raises_from_the_worker(rendered):
+    """Cameras that declare 320x180 for 640x360 files: the feed thread's
+    check raises the JAX package's ValueError, message and all, from the
+    call, and leaves no feed thread behind."""
+    files = rendered.im_data["filename"]
+    cams = [copy.copy(c) for c in rendered.im_data["cam"]]
+    for c in cams:
+        c.resolution_x, c.resolution_y = 320, 180
+    with pytest.raises(ValueError, match="declares resolution 320x180") as ref:
+        estimate_pose_mp(files, cams, marker_ids=None, **dict(KW, batch_size=2))
+    with pytest.raises(ValueError, match="declares resolution 320x180") as out:
+        TC.estimate_pose_mp(files, _port_cams(cams), marker_ids=None, device="cpu",
+                            **dict(KW, batch_size=2))
+    assert str(out.value) == str(ref.value)
+    assert not _feed_threads()
+
+
+def test_missing_file_raises_from_the_worker(rendered):
+    """A missing file in the third batch (the first two already fed and
+    drained) raises FileNotFoundError from the call, as in the JAX
+    package, and no feed thread is left."""
+    files = list(rendered.im_data["filename"])
+    files[5] = os.path.join(os.path.dirname(files[5]), "missing.jpg")
+    cams = rendered.im_data["cam"]
+    with pytest.raises(FileNotFoundError, match="missing.jpg"):
+        estimate_pose_mp(files, cams, marker_ids=None, **dict(KW, batch_size=2))
+    with pytest.raises(FileNotFoundError, match="missing.jpg"):
+        TC.estimate_pose_mp(files, _port_cams(cams), marker_ids=None, device="cpu",
+                            **dict(KW, batch_size=2))
+    assert not _feed_threads()
+
+
+def test_timer_events_carry_their_stage(rendered):
+    """Every perception phase is a ``feed`` or a ``drain`` event with its
+    start; both stages appear, each with its own phases (the labeler runs
+    on the feed, the candidates' gates on the drain, both as ``host
+    candidates``)."""
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    timer = PhaseTimer(verbose=False, device="cpu")
+    TP.estimate_pose_batched(files, cams, device="cpu", timer=timer, **dict(KW, batch_size=2))
+    stages = {}
+    for e in timer.events:
+        stages.setdefault(e["stage"], set()).add(e["name"])
+        assert e["start"] > 0 and e["seconds"] >= 0
+    assert set(stages) == {"feed", "drain"}
+    assert stages["feed"] == {"upload", "threshold kernel", "masks to host", "host candidates"}
+    assert stages["drain"] == DRAIN
+    assert sum(e["name"] == "dict" for e in timer.events) == 3
+
+
+def test_verbose_phase_lines_stay_whole(capsys):
+    """Phases ending on several threads at once print whole lines."""
+    timer = PhaseTimer(verbose=True)
+
+    def run(i):
+        for _ in range(50):
+            with timer.phase(f"phase {i}", stage="feed"):
+                pass
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 200
+    assert all(line.startswith("phase ") and line.endswith("s).") for line in lines)
+
+
+@pytest.fixture(scope="module")
+def packed_batch(rendered):
+    """The threshold masks (the kernel's plain version) of the 6 frames, at
+    their width and at a ragged 643 columns."""
+    import cv2
+
+    gray = np.stack([cv2.imread(f, cv2.IMREAD_GRAYSCALE) for f in rendered.im_data["filename"]])
+    ragged = np.ascontiguousarray(np.pad(gray, ((0, 0), (0, 0), (0, 3)), mode="edge"))
+    p = DetectorParams()
+    return [(multi_threshold(torch.from_numpy(g), p.win_sizes, p.thresh_const).numpy(),
+             g.shape[1], g.shape[2]) for g in (gray, ragged)]
+
+
+def _batch(ccl, packed, H, W, K, K2, p):
+    B, Wn, _, Wb = packed.shape
+    quads = np.full((B, Wn * (K + K2), 4, 2), np.nan, np.float32)
+    areas = np.full((B, Wn * (K + K2)), -1, np.int32)
+    counts = np.full((B, Wn, 2), -1, np.int32)
+    ccl.quad_candidates_batch(packed, B, Wn, H, W, Wb, K, K2, p.min_area,
+                              p.max_area_rate * H * W, quads, areas, counts)
+    return quads, areas, counts
+
+
+@pytest.mark.parametrize("K2", [8, 0], ids=["split slots", "no split slots"])
+def test_batch_entry_equals_per_window_calls(packed_batch, jax_native, K2):
+    """``quad_candidates_batch`` fills, byte for byte, what the per-window
+    ``quad_candidates_packed2`` of the port and of the JAX package return,
+    window after window (``K2 = 0``: ``quad_candidates_packed``)."""
+    ours, theirs = tnative.get_fastccl(), jax_native["fastccl"]
+    p = DetectorParams()
+    K = p.max_candidates
+    for packed, H, W in packed_batch:
+        quads, areas, counts = _batch(ours, packed, H, W, K, K2, p)
+        B, Wn, _, Wb = packed.shape
+        Ks = K + K2
+        emitted = 0
+        for b in range(B):
+            for wi in range(Wn):
+                rows = np.ascontiguousarray(packed[b, wi])
+                args = (rows, H, W, Wb, K, K2) if K2 else (rows, H, W, Wb, K)
+                for mod in (ours, theirs):
+                    fn = mod.quad_candidates_packed2 if K2 else mod.quad_candidates_packed
+                    ref = fn(*args, p.min_area, p.max_area_rate * H * W)
+                    sl = slice(wi * Ks, (wi + 1) * Ks)
+                    assert quads[b, sl].tobytes() == ref[0], (b, wi)
+                    assert areas[b, sl].tobytes() == ref[1], (b, wi)
+                    assert tuple(counts[b, wi]) == (tuple(ref[2:]) if K2 else (ref[2], 0))
+                emitted += counts[b, wi].sum()
+        assert emitted >= 50
+
+
+def test_two_threads_labeling_at_once_give_the_serial_bytes(packed_batch):
+    """The batch entry point runs with the GIL released: two threads
+    labeling the two batches at once, many times over, each get the bytes
+    of a serial call."""
+    ccl = tnative.get_fastccl()
+    p = DetectorParams()
+    K, K2 = p.max_candidates, p.max_candidates_4conn
+    serial = [_batch(ccl, *case, K, K2, p) for case in packed_batch]
+    results: dict = {}
+
+    def label(i):
+        results[i] = [_batch(ccl, *packed_batch[i], K, K2, p) for _ in range(5)]
+
+    threads = [threading.Thread(target=label, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for i, runs in results.items():
+        for run in runs:
+            for a, b in zip(run, serial[i]):
+                assert a.tobytes() == b.tobytes()
+    assert len(results) == 2
+
+
+def test_c_builds_are_built_and_loaded_once(monkeypatch):
+    """Sixteen threads asking for the C modules of an empty cache at once:
+    each module is built and loaded by one of them, and all get the same
+    module object."""
+    import sys
+
+    monkeypatch.setattr(tnative, "_cache", {})
+    builds = []
+    real_build = tnative._build
+
+    def counting_build(name):
+        builds.append(name)
+        return real_build(name)
+
+    monkeypatch.setattr(tnative, "_build", counting_build)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    got: list = []
+    try:
+        threads = [threading.Thread(target=lambda: got.append(
+            (tnative.get_fastccl(), tnative.get_fastthresh()))) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(builds) == ["fastccl", "fastthresh"]
+    assert len(got) == 16 and got[0][0] is not None and got[0][1] is not None
+    assert all(a is got[0][0] and b is got[0][1] for a, b in got)

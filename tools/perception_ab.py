@@ -1,0 +1,63 @@
+"""Warm perception timings of one checkout on the card, for comparing two
+checkouts in one chip call (the in-order parent against the pipelined
+port, say).
+
+    python3 tools/perception_ab.py CHECKOUT TAG
+
+imports ``chip_smoke.py`` from ``CHECKOUT`` (copy the current one into an
+older checkout first), builds the threshold kernel and the C modules,
+renders the smoke's 384-frame perception scene on the card, runs
+``estimate_pose_gray`` once to warm up and three more times (each through
+``chip_smoke._perception_run``), then writes the frames as JPEGs and runs
+``cam.estimate_pose_mp`` on the files twice.  It prints one line, ``AB``
+and a JSON object: the warm-up's and the runs' rows, the file runs'
+seconds and their detections.  Run the checkouts as separate processes in
+turns (parent, change, change, parent, ...): both packages are named
+``vican_torch``.  Needs a CUDA card and cv2.
+"""
+import json
+import os
+import sys
+import tempfile
+import time
+
+
+def main() -> None:
+    checkout, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    sys.path.insert(0, checkout)
+    import cv2
+    import torch
+
+    import chip_smoke as cs
+    from vican_torch import _kernels
+    from vican_torch.cam import estimate_pose_mp
+
+    _kernels.build(["threshold"])
+    cs._build_native()
+    scene = cs.perception_scene(torch.device("cuda"))
+    host, names, frame_cams = scene[3].cpu().numpy(), scene[4], scene[5]
+    del scene
+    torch.cuda.empty_cache()
+    out = {"tag": tag}
+    _, out["warmup"] = cs._perception_run(host, names, frame_cams)
+    out["runs"] = [cs._perception_run(host, names, frame_cams)[1] for _ in range(3)]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for img, name in zip(host, names):
+            path = os.path.join(tmp, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            cv2.imwrite(path, img)
+            files.append(path)
+        out["files_s"] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            edges = estimate_pose_mp(files, frame_cams, brightness=0, contrast=0,
+                                     marker_ids=None, **cs.PERCEPTION_KW)
+            torch.cuda.synchronize()
+            out["files_s"].append(time.perf_counter() - t0)
+    out["files_detections"] = len(edges)
+    print("AB " + json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

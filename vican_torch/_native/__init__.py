@@ -14,7 +14,10 @@ this interpreter's and numpy's headers into ``_build/`` (git ignores it),
 named by a hash of the source and flags.  When the build fails, or under
 ``VICAN_TPU_NO_NATIVE=1``, the getter returns None and the caller takes its
 numpy/scipy/Python path, whose output is identical; :data:`build_errors`
-keeps the compiler's message.
+keeps the compiler's message.  A lock makes the first call of each getter
+build and load its module once, whichever threads call it.  The labeler
+and the host threshold release the GIL while they run, unlike the JAX
+package's copies.
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ import os
 import subprocess
 import sys
 import sysconfig
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _cache: dict = {}
+_lock = threading.Lock()
 # the compiler's output of each build that failed in this process
 build_errors: dict[str, str] = {}
 
@@ -64,15 +69,21 @@ def _build(name: str) -> str | None:
 def _get_module(name: str):
     if name in _cache:
         return _cache[name]
-    mod = None
-    if not os.environ.get("VICAN_TPU_NO_NATIVE"):
-        so_path = _build(name)
-        if so_path is not None:
-            spec = importlib.util.spec_from_file_location(f"vican_torch._native.{name}", so_path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-    _cache[name] = mod
-    return mod
+    # perception's feed thread may make the first call while another
+    # thread makes its own: one builds and loads, the other waits for it
+    with _lock:
+        if name in _cache:
+            return _cache[name]
+        mod = None
+        if not os.environ.get("VICAN_TPU_NO_NATIVE"):
+            so_path = _build(name)
+            if so_path is not None:
+                spec = importlib.util.spec_from_file_location(f"vican_torch._native.{name}",
+                                                              so_path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+        _cache[name] = mod
+        return mod
 
 
 def get_fastpack():

@@ -30,8 +30,13 @@
  * parent (area4 < area8) are emitted as extra candidates — the dictionary
  * decode is the backstop, so recall improves with zero false-id risk.
  *
- * Exposed as vican_torch._native.fastccl.quad_candidates[_packed/_packed2]();
- * validated against the scipy fallback in tests/test_torch_fastccl.py.
+ * Exposed as vican_torch._native.fastccl.quad_candidates[_packed/_packed2]()
+ * and, for a whole batch, quad_candidates_batch().  A copy of
+ * vican_tpu/_native/fastccl.c with the same output, byte for byte, except
+ * that every entry point labels with the GIL released (perception's feed
+ * thread labels while the calling thread runs detection) and the batch
+ * entry point is added.  Validated against the JAX package's module and
+ * the scipy fallback in tests/test_torch_fastccl.py.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -93,8 +98,9 @@ static int run_stats(int32_t *parent, int32_t *slot, int32_t nruns,
         if (r == i) {
             if (nstats == cap) {
                 cap *= 2;
-                stats = (Stats *)realloc(stats, (size_t)cap * sizeof(Stats));
-                if (!stats) return -1;
+                Stats *grown = (Stats *)realloc(stats, (size_t)cap * sizeof(Stats));
+                if (!grown) { free(stats); return -1; }
+                stats = grown;
             }
             s = nstats++;
             stats[s] = (Stats){0, 0, 0};
@@ -210,30 +216,25 @@ static int top_k(int *order, int n, Py_ssize_t K, const Stats *stats) {
     return n;
 }
 
-/* quad_candidates(fg_bytes, H, W, K, min_area, max_area)
- *   fg_bytes: contiguous uint8 (H*W), nonzero = foreground
- * quad_candidates_packed(packed_bytes, H, W, Wb, K, min_area, max_area)
- *   packed_bytes: contiguous (H, Wb) with bit x of a row at
- *   row[x >> 3] >> (x & 7) (np.packbits bitorder="little") — the exact
- *   layout fastthresh.c and the device threshold program emit, so the
- *   ~8x-larger unpacked mask is never materialized on the host.
- * quad_candidates_packed2(packed_bytes, H, W, Wb, K, K2, min_area, max_area)
- *   additionally returns up to K2 4-connected SPLIT candidates (see the
- *   module docstring) in slots [K, K+K2).
- * All return (corners float32 (K+K2, 4, 2), areas int32 (K+K2,), count8,
- * count4) — the two-argument forms with K2 = 0 return counts (n, 0).
- */
-static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
-                         Py_ssize_t Wb, Py_ssize_t K, Py_ssize_t K2,
-                         double min_area, double max_area, int legacy) {
+/* The labeler on one mask: ``im`` is a contiguous (H, Wb) bit-packed mask
+ * (Wb > 0; bit x of a row at row[x >> 3] >> (x & 7), np.packbits
+ * bitorder="little", the layout fastthresh.c and the device threshold emit,
+ * so the ~8x-larger unpacked mask is never materialized on the host) or,
+ * with Wb == 0, an (H, W) byte mask (nonzero = foreground).  Writes K + K2
+ * corner slots (float32 (4, 2) each) and area slots, zeroed first, and the
+ * counts of 8-connected candidates (slots [0, K)) and of 4-connected SPLIT
+ * candidates (slots [K, K+K2), see the module docstring).  Returns 0, or -1
+ * when out of memory.  It touches no Python object, so its callers run it
+ * with the GIL released. */
+static int qc_core(const uint8_t *im, Py_ssize_t H, Py_ssize_t W, Py_ssize_t Wb,
+                   Py_ssize_t K, Py_ssize_t K2, double min_area, double max_area,
+                   float *corners, int32_t *areas, int *n8_out, int *n4_out) {
     const int packed = Wb > 0;
     const Py_ssize_t stride = packed ? Wb : W;
-    if (fg->len < H * stride) {
-        PyBuffer_Release(fg);
-        PyErr_SetString(PyExc_ValueError, "fg buffer too small");
-        return NULL;
-    }
-    const uint8_t *im = (const uint8_t *)fg->buf;
+    int rc = -1;
+    memset(corners, 0, (size_t)(K + K2) * 8 * sizeof(float));
+    memset(areas, 0, (size_t)(K + K2) * sizeof(int32_t));
+    *n8_out = *n4_out = 0;
 
     /* ---- extract runs per row ---- */
     int32_t rcap = 4096, nruns = 0;
@@ -241,11 +242,11 @@ static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
     int32_t *re = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* end x (incl) */
     int32_t *ry = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* row */
     int32_t *row_first = (int32_t *)malloc(((size_t)H + 1) * sizeof(int32_t));
-    if (!rs || !re || !ry || !row_first) {
-        free(rs); free(re); free(ry); free(row_first);
-        PyBuffer_Release(fg);
-        return PyErr_NoMemory();
-    }
+    int32_t *parent8 = NULL, *slot8 = NULL;
+    Stats *stats8 = NULL;
+    int *order = NULL;
+    int nstats8, nkeep8 = 0, nkeep4 = 0;
+    if (!rs || !re || !ry || !row_first) goto done;
     for (int32_t y = 0; y < H; y++) {
         row_first[y] = nruns;
         const uint8_t *row = im + (size_t)y * stride;
@@ -285,9 +286,13 @@ static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
             }
             if (nruns == rcap) {
                 rcap *= 2;
-                rs = (int32_t *)realloc(rs, (size_t)rcap * sizeof(int32_t));
-                re = (int32_t *)realloc(re, (size_t)rcap * sizeof(int32_t));
-                ry = (int32_t *)realloc(ry, (size_t)rcap * sizeof(int32_t));
+                int32_t *rs2 = (int32_t *)realloc(rs, (size_t)rcap * sizeof(int32_t));
+                if (rs2) rs = rs2;
+                int32_t *re2 = (int32_t *)realloc(re, (size_t)rcap * sizeof(int32_t));
+                if (re2) re = re2;
+                int32_t *ry2 = (int32_t *)realloc(ry, (size_t)rcap * sizeof(int32_t));
+                if (ry2) ry = ry2;
+                if (!rs2 || !re2 || !ry2) goto done;
             }
             rs[nruns] = s; re[nruns] = e; ry[nruns] = y;
             nruns++;
@@ -296,60 +301,111 @@ static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
     row_first[H] = nruns;
 
     /* ---- 8-connected components ---- */
-    int32_t *parent8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
-    int32_t *slot8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
-    Stats *stats8 = NULL;
+    parent8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
+    slot8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
+    if (!parent8 || !slot8) goto done;
     link_runs(parent8, nruns, rs, re, row_first, H, 1);
-    int nstats8 = run_stats(parent8, slot8, nruns, rs, re, ry, &stats8);
+    nstats8 = run_stats(parent8, slot8, nruns, rs, re, ry, &stats8);
+    if (nstats8 < 0) goto done;
 
-    int *order = (int *)malloc((size_t)(nstats8 > 0 ? nstats8 : 1) * sizeof(int));
-    int nkeep8 = 0;
+    order = (int *)malloc((size_t)(nstats8 > 0 ? nstats8 : 1) * sizeof(int));
+    if (!order) goto done;
     for (int s = 0; s < nstats8; s++)
         if (stats8[s].area >= (int32_t)min_area && stats8[s].area <= (int32_t)max_area)
             order[nkeep8++] = s;
     nkeep8 = top_k(order, nkeep8, K, stats8);
-
-    float *corners = (float *)calloc((size_t)(K + K2) * 8, sizeof(float));
-    int32_t *areas = (int32_t *)calloc((size_t)(K + K2), sizeof(int32_t));
-    corner_pass(slot8, nruns, nstats8, rs, re, ry, stats8, order, nkeep8,
-                corners, areas);
+    if (corner_pass(slot8, nruns, nstats8, rs, re, ry, stats8, order, nkeep8,
+                    corners, areas))
+        goto done;
 
     /* ---- 4-connected SPLIT candidates ---- */
-    int nkeep4 = 0;
     if (K2 > 0 && nruns > 0) {
         int32_t *parent4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
         int32_t *slot4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
         Stats *stats4 = NULL;
-        link_runs(parent4, nruns, rs, re, row_first, H, 0);
-        int nstats4 = run_stats(parent4, slot4, nruns, rs, re, ry, &stats4);
-        /* area of the 8-conn parent of each 4-conn component: the 4-conn
-         * root run belongs to exactly one 8-conn component */
-        int32_t *root_run4 = (int32_t *)malloc((size_t)nstats4 * sizeof(int32_t));
-        for (int32_t i = nruns - 1; i >= 0; i--) root_run4[slot4[i]] = i;
-        int *order4 = (int *)malloc((size_t)nstats4 * sizeof(int));
-        for (int s = 0; s < nstats4; s++) {
-            int32_t a4 = stats4[s].area;
-            if (a4 < (int32_t)min_area || a4 > (int32_t)max_area) continue;
-            int32_t a8 = stats8[slot8[root_run4[s]]].area;
-            if (a4 >= a8) continue; /* not a split: same component either way */
-            order4[nkeep4++] = s;
+        int32_t *root_run4 = NULL;
+        int *order4 = NULL;
+        int nstats4 = -1;
+        if (parent4 && slot4) {
+            link_runs(parent4, nruns, rs, re, row_first, H, 0);
+            nstats4 = run_stats(parent4, slot4, nruns, rs, re, ry, &stats4);
         }
-        nkeep4 = top_k(order4, nkeep4, K2, stats4);
-        corner_pass(slot4, nruns, nstats4, rs, re, ry, stats4, order4, nkeep4,
-                    corners + (size_t)K * 8, areas + K);
+        if (nstats4 >= 0) {
+            root_run4 = (int32_t *)malloc((size_t)(nstats4 > 0 ? nstats4 : 1) * sizeof(int32_t));
+            order4 = (int *)malloc((size_t)(nstats4 > 0 ? nstats4 : 1) * sizeof(int));
+        }
+        int ok4 = root_run4 && order4;
+        if (ok4) {
+            /* area of the 8-conn parent of each 4-conn component: the
+             * 4-conn root run belongs to exactly one 8-conn component */
+            for (int32_t i = nruns - 1; i >= 0; i--) root_run4[slot4[i]] = i;
+            for (int s = 0; s < nstats4; s++) {
+                int32_t a4 = stats4[s].area;
+                if (a4 < (int32_t)min_area || a4 > (int32_t)max_area) continue;
+                int32_t a8 = stats8[slot8[root_run4[s]]].area;
+                if (a4 >= a8) continue; /* not a split: same component either way */
+                order4[nkeep4++] = s;
+            }
+            nkeep4 = top_k(order4, nkeep4, K2, stats4);
+            ok4 = !corner_pass(slot4, nruns, nstats4, rs, re, ry, stats4, order4, nkeep4,
+                               corners + (size_t)K * 8, areas + K);
+        }
         free(order4); free(root_run4); free(stats4); free(slot4); free(parent4);
+        if (!ok4) goto done;
     }
-
+    *n8_out = nkeep8;
+    *n4_out = nkeep4;
+    rc = 0;
+done:
     free(order); free(stats8); free(slot8); free(parent8);
     free(rs); free(re); free(ry); free(row_first);
-    PyBuffer_Release(fg);
+    return rc;
+}
 
+/* quad_candidates(fg_bytes, H, W, K, min_area, max_area)
+ *   fg_bytes: contiguous uint8 (H*W), nonzero = foreground
+ * quad_candidates_packed(packed_bytes, H, W, Wb, K, min_area, max_area)
+ *   packed_bytes: contiguous bit-packed (H, Wb), the layout of qc_core
+ * quad_candidates_packed2(packed_bytes, H, W, Wb, K, K2, min_area, max_area)
+ *   additionally returns up to K2 4-connected SPLIT candidates in slots
+ *   [K, K+K2).
+ * All return (corners float32 (K+K2, 4, 2), areas int32 (K+K2,), count8,
+ * count4) — the two-argument forms with K2 = 0 return counts (n, 0).
+ * The labeling runs with the GIL released.
+ */
+static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
+                         Py_ssize_t Wb, Py_ssize_t K, Py_ssize_t K2,
+                         double min_area, double max_area, int legacy) {
+    const Py_ssize_t stride = Wb > 0 ? Wb : W;
+    if (fg->len < H * stride) {
+        PyBuffer_Release(fg);
+        PyErr_SetString(PyExc_ValueError, "fg buffer too small");
+        return NULL;
+    }
+    float *corners = (float *)malloc((size_t)(K + K2) * 8 * sizeof(float) + 1);
+    int32_t *areas = (int32_t *)malloc((size_t)(K + K2) * sizeof(int32_t) + 1);
+    int rc = -1, nkeep8 = 0, nkeep4 = 0;
+    if (corners && areas) {
+        Py_BEGIN_ALLOW_THREADS
+        rc = qc_core((const uint8_t *)fg->buf, H, W, Wb, K, K2, min_area, max_area,
+                     corners, areas, &nkeep8, &nkeep4);
+        Py_END_ALLOW_THREADS
+    }
+    PyBuffer_Release(fg);
+    if (rc) {
+        free(corners); free(areas);
+        return PyErr_NoMemory();
+    }
     PyObject *c_bytes = PyBytes_FromStringAndSize(
         (char *)corners, (Py_ssize_t)(K + K2) * 8 * sizeof(float));
     PyObject *a_bytes = PyBytes_FromStringAndSize(
         (char *)areas, (Py_ssize_t)(K + K2) * sizeof(int32_t));
     free(corners);
     free(areas);
+    if (!c_bytes || !a_bytes) {
+        Py_XDECREF(c_bytes); Py_XDECREF(a_bytes);
+        return NULL;
+    }
     if (legacy)
         return Py_BuildValue("(NNi)", c_bytes, a_bytes, nkeep8);
     return Py_BuildValue("(NNii)", c_bytes, a_bytes, nkeep8, nkeep4);
@@ -393,6 +449,62 @@ static PyObject *quad_candidates_packed2(PyObject *self, PyObject *args) {
     return qc_impl(&fg, H, W, Wb, K, K2, min_area, max_area, 0);
 }
 
+/* quad_candidates_batch(packed, B, Wn, H, W, Wb, K, K2, min_area, max_area,
+ *                       corners_out, areas_out, counts_out)
+ *   packed: contiguous bit-packed (B, Wn, H, Wb) masks (the layout of
+ *   qc_core); the outputs are writable contiguous buffers that the call
+ *   fills: corners float32 (B, Wn*(K+K2), 4, 2), areas int32
+ *   (B, Wn*(K+K2)), counts int32 (B, Wn, 2) = (count8, count4).
+ * Each (frame, window) is labeled as quad_candidates_packed2 labels it,
+ * byte for byte, all in ONE call with the GIL released: a batch of 32
+ * frames x 7 windows would otherwise cost 224 calls, each with Python glue
+ * that holds the GIL.  Returns None.
+ */
+static PyObject *quad_candidates_batch(PyObject *self, PyObject *args) {
+    Py_buffer fg, c_out, a_out, n_out;
+    Py_ssize_t B, Wn, H, W, Wb, K, K2;
+    double min_area, max_area;
+    if (!PyArg_ParseTuple(args, "y*nnnnnnnddw*w*w*", &fg, &B, &Wn, &H, &W, &Wb, &K,
+                          &K2, &min_area, &max_area, &c_out, &a_out, &n_out))
+        return NULL;
+    const char *err = NULL;
+    if (B < 0 || Wn < 0 || H < 0 || W < 0 || K < 0 || K2 < 0 || Wb * 8 < W || Wb <= 0)
+        err = "bad shape";
+    else if (fg.len < B * Wn * H * Wb)
+        err = "packed buffer too small";
+    else if (c_out.len < B * Wn * (K + K2) * 8 * (Py_ssize_t)sizeof(float)
+             || a_out.len < B * Wn * (K + K2) * (Py_ssize_t)sizeof(int32_t)
+             || n_out.len < B * Wn * 2 * (Py_ssize_t)sizeof(int32_t))
+        err = "output buffer too small";
+    int rc = 0;
+    if (!err) {
+        const uint8_t *im = (const uint8_t *)fg.buf;
+        float *corners = (float *)c_out.buf;
+        int32_t *areas = (int32_t *)a_out.buf;
+        int32_t *counts = (int32_t *)n_out.buf;
+        Py_BEGIN_ALLOW_THREADS
+        for (Py_ssize_t m = 0; m < B * Wn && !rc; m++) {
+            int n8, n4;
+            rc = qc_core(im + (size_t)m * H * Wb, H, W, Wb, K, K2, min_area, max_area,
+                         corners + (size_t)m * (K + K2) * 8,
+                         areas + (size_t)m * (K + K2), &n8, &n4);
+            counts[2 * m] = n8;
+            counts[2 * m + 1] = n4;
+        }
+        Py_END_ALLOW_THREADS
+    }
+    PyBuffer_Release(&fg);
+    PyBuffer_Release(&c_out);
+    PyBuffer_Release(&a_out);
+    PyBuffer_Release(&n_out);
+    if (err) {
+        PyErr_SetString(PyExc_ValueError, err);
+        return NULL;
+    }
+    if (rc) return PyErr_NoMemory();
+    Py_RETURN_NONE;
+}
+
 static PyMethodDef methods[] = {
     {"quad_candidates", quad_candidates, METH_VARARGS,
      "Run-based union-find CCL + farthest-point quad corners."},
@@ -400,6 +512,8 @@ static PyMethodDef methods[] = {
      "Same, reading a bit-packed (H, Wb) mask (np.packbits little-endian)."},
     {"quad_candidates_packed2", quad_candidates_packed2, METH_VARARGS,
      "Packed variant that also emits 4-connected split candidates."},
+    {"quad_candidates_batch", quad_candidates_batch, METH_VARARGS,
+     "quad_candidates_packed2 over a (B, Wn, H, Wb) batch in one call, into buffers."},
     {NULL, NULL, 0, NULL},
 };
 

@@ -6,7 +6,9 @@
  * every window size off it, emitting the bit-packed (Wn, H, ceil(W/8))
  * masks the packed CCL kernel (fastccl.c) consumes directly: ~4x faster
  * and no (B, Wn, H, W) mask materialization.  This file is a copy of
- * vican_tpu/_native/fastthresh.c, which the JAX package builds the same way.
+ * vican_tpu/_native/fastthresh.c, which the JAX package builds the same way,
+ * except that this copy releases the GIL around its loops, so perception's
+ * feed thread thresholds while the calling thread runs detection.
  *
  * Exactness: box sums are exact integers, and the foreground test
  * ``(g + C) * win^2 <= sum`` (for integral C) is equivalent to the device
@@ -80,6 +82,9 @@ static PyObject *threshold_pack(PyObject *self, PyObject *args) {
         return PyErr_NoMemory();
     }
 
+    /* the integral image and the sweep touch no Python object: other
+     * threads run while they do */
+    Py_BEGIN_ALLOW_THREADS
     /* replicate-padded integral image: padded pixel (py, px) reads
      * g[clamp(py-R), clamp(px-R)] */
     memset(ii, 0, (size_t)IS * sizeof(int32_t));
@@ -151,6 +156,7 @@ static PyObject *threshold_pack(PyObject *self, PyObject *args) {
             }
         }
     }
+    Py_END_ALLOW_THREADS
 
     free(ii);
     free(cmp);

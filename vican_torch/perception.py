@@ -43,6 +43,13 @@ labeler's in tie-breaking, the row-subsampled re-fit and the dedup score
 the other modes' at the edges of what decodes.  It is the mode taken when
 no host labeler exists (neither the C module nor scipy).
 
+Batches run on the JAX package's two-thread feed/drain pipeline
+(vican_tpu/perception.py:1725-1758; :func:`_edges`): a worker thread
+decodes, uploads, thresholds and extracts the candidates of up to
+``VICAN_TPU_PIPELINE_DEPTH`` (default 2) batches ahead, on a CUDA stream of
+its own, while the calling thread detects, solves PnP and fills the dict in
+batch order.  The output does not depend on the depth.
+
 ``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` of
 :mod:`vican_torch.parallel`) splits every batch over the ranks, one card
 each; every rank returns the whole edge dict.
@@ -56,6 +63,11 @@ transition midpoint), as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from typing import Iterable
 
 import numpy as np
@@ -340,36 +352,22 @@ def quads_from_masks(fg: np.ndarray, params) -> tuple[np.ndarray, np.ndarray, np
 
     Returns ``(quads (B, Q, 4, 2) float32, valid (B, Q) bool, areas)`` with
     ``Q = Wn * (max_candidates + max_candidates_4conn)``; quads are
-    clockwise-wound and gated.  The C labeler (fastccl.c, split-capable
-    packed2 entry, fed bit-packed rows) runs when it built; otherwise the
-    scipy.ndimage extractor below reproduces it bit for bit, 4-connected
-    split candidates included: both return the SAME slot layout and
-    detections (vican_tpu/perception.py:303-334).
+    clockwise-wound and gated.  The C labeler (fastccl.c's batch entry,
+    fed bit-packed rows) runs when it built; otherwise the scipy.ndimage
+    extractor below reproduces it bit for bit, 4-connected split
+    candidates included: both return the SAME slot layout and detections
+    (vican_tpu/perception.py:303-334).
     """
     global last_labeler
     ccl = _get_ccl()
-    B = fg.shape[0]
     H, W = fg.shape[2], fg.shape[3]
-    K2 = params.max_candidates_4conn
-    max_area = params.max_area_rate * H * W
     if ccl is not None:
-        Wb = -(-W // 8)
-
-        def extract(b, wi):
-            packed = np.packbits(fg[b, wi], axis=-1, bitorder="little")
-            return ccl.quad_candidates_packed2(
-                np.ascontiguousarray(packed), H, W, Wb,
-                params.max_candidates, K2, params.min_area, max_area)
-
         last_labeler = "c"
+        slots = _c_slots(ccl, np.packbits(fg, axis=-1, bitorder="little"), H, W, params)
     else:
-        def extract(b, wi):
-            return _candidates_scipy(fg[b, wi], params.max_candidates, K2,
-                                     params.min_area, max_area)
-
         last_labeler = "scipy"
-    return _collect_window_candidates(B, fg.shape[1], H, W, params, extract,
-                                      K2=K2, mask_of=lambda b, wi: fg[b, wi])
+        slots = _scipy_slots(fg, params)
+    return _gated_candidates(*slots, lambda b, wi: fg[b, wi], H, W, params)
 
 
 def _candidates_scipy(fg: np.ndarray, K: int, K2: int, min_area, max_area):
@@ -460,32 +458,59 @@ def _candidates_scipy(fg: np.ndarray, K: int, K2: int, min_area, max_area):
     return corners.tobytes(), areas_out.tobytes(), nkeep8, nkeep4
 
 
-def _collect_window_candidates(B, Wn, H, W, params, extract, K2=0,
-                               mask_of=None):
-    """Shared tail of the C candidate extractors: collect per-(image,
-    window) quads into fixed slots, enforce clockwise winding, apply the
-    validity gates.  ``extract(b, wi) -> (corners_bytes, area_bytes, n)``
-    or, with ``K2 > 0`` extra 4-conn split slots per window,
-    ``-> (corners_bytes, area_bytes, n8, n4)``.  ``mask_of(b, wi)`` (when
-    given) provides the window's foreground mask so gate-rejected
-    candidates can be re-fit (see :func:`_refit_degenerate_quad`)."""
-    K = params.max_candidates
+def _c_slots(ccl, packed: np.ndarray, H: int, W: int, params):
+    """The C labeler on bit-packed ``(B, Wn, >=H, ceil(W/8))`` masks, every
+    (frame, window) in ONE call that releases the GIL
+    (``fastccl.quad_candidates_batch``, byte for byte the per-window
+    ``quad_candidates_packed2``): ``(corners (B, Wn*Ks, 4, 2) float32,
+    areas (B, Wn*Ks) int32, counts (B, Wn, 2))`` with ``Ks = K + K2``
+    slots a window and counts ``(n8, n4)``."""
+    B, Wn, _, Wb = packed.shape
+    K, K2 = params.max_candidates, params.max_candidates_4conn
+    quads = np.empty((B, Wn * (K + K2), 4, 2), np.float32)
+    areas = np.empty((B, Wn * (K + K2)), np.int32)
+    counts = np.empty((B, Wn, 2), np.int32)
+    ccl.quad_candidates_batch(np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2,
+                              params.min_area, params.max_area_rate * H * W,
+                              quads, areas, counts)
+    return quads, areas, counts
+
+
+def _scipy_slots(fg: np.ndarray, params):
+    """:func:`_c_slots`' output from the scipy labeler, window by window,
+    on unpacked ``(B, Wn, H, W)`` masks."""
+    B, Wn, H, W = fg.shape
+    K, K2 = params.max_candidates, params.max_candidates_4conn
     Ks = K + K2
     quads = np.zeros((B, Wn * Ks, 4, 2), np.float32)
-    areas = np.zeros((B, Wn * Ks), np.float32)
-    valid = np.zeros((B, Wn * Ks), bool)
+    areas = np.zeros((B, Wn * Ks), np.int32)
+    counts = np.zeros((B, Wn, 2), np.int32)
     for b in range(B):
         for wi in range(Wn):
-            out = extract(b, wi)
-            c_bytes, a_bytes = out[0], out[1]
-            q = np.frombuffer(c_bytes, np.float32).reshape(Ks, 4, 2)
-            a = np.frombuffer(a_bytes, np.int32)
-            sl = wi * Ks
-            quads[b, sl : sl + Ks] = q
-            areas[b, sl : sl + Ks] = a
-            valid[b, sl : sl + out[2]] = True
-            if K2 > 0:
-                valid[b, sl + K : sl + K + out[3]] = True
+            c_bytes, a_bytes, n8, n4 = _candidates_scipy(
+                fg[b, wi], K, K2, params.min_area, params.max_area_rate * H * W)
+            sl = slice(wi * Ks, (wi + 1) * Ks)
+            quads[b, sl] = np.frombuffer(c_bytes, np.float32).reshape(Ks, 4, 2)
+            areas[b, sl] = np.frombuffer(a_bytes, np.int32)
+            counts[b, wi] = n8, n4
+    return quads, areas, counts
+
+
+def _gated_candidates(quads, areas, counts, mask_of, H, W, params):
+    """Shared tail of the candidate extractors: the labeler's slots
+    (:func:`_c_slots`) -> ``(quads, valid, areas float32)``: the emitted
+    slots (the first ``n8`` of a window's K 8-connected slots, the first
+    ``n4`` of its K2 split slots), clockwise winding, the validity gates.
+    ``mask_of(b, wi)`` provides the window's foreground mask so
+    gate-rejected candidates can be re-fit (see
+    :func:`_refit_degenerate_quad`)."""
+    K = params.max_candidates
+    Ks = K + params.max_candidates_4conn
+    B, Wn = counts.shape[:2]
+    slot = np.arange(Ks)
+    valid = ((slot < counts[..., :1])
+             | ((slot >= K) & (slot < K + counts[..., 1:]))).reshape(B, Wn * Ks)
+    areas = areas.astype(np.float32)
 
     # enforce clockwise winding (image coords): positive shoelace
     x = quads[..., 0]
@@ -497,37 +522,36 @@ def _collect_window_candidates(B, Wn, H, W, params, extract, K2=0,
     emitted = valid
     valid = emitted & _quad_gates(quads, areas, H, W, params)
 
-    if mask_of is not None:
-        # Degenerate-extraction recovery: an extractor-emitted candidate
-        # that the shape gates reject may be an extreme-oblique marker
-        # whose farthest-point corners collapsed; re-fit the max-area
-        # hull quad and re-gate (decode is the backstop downstream).
-        # Trigger ONLY on the degeneracy signature — a collapsed corner
-        # pair (tiny edge) or a non-convex corner order — so ordinary
-        # fill-gate junk never pays the re-fit (scipy label on a crop).
-        edges_ = np.roll(quads, -1, axis=-2) - quads
-        elen_ = np.linalg.norm(edges_, axis=-1)
-        enx_ = np.roll(edges_, -1, axis=-2)
-        cr_ = edges_[..., 0] * enx_[..., 1] - edges_[..., 1] * enx_[..., 0]
-        degen = (elen_.min(-1) < 5.0) | ~((cr_ > 0).all(-1) | (cr_ < 0).all(-1))
-        masks: dict = {}  # several rejects often share a window: unpack once
-        for b, s in zip(*np.nonzero(emitted & ~valid & degen)):
-            wi = s // Ks
-            if (b, wi) not in masks:
-                masks[(b, wi)] = mask_of(b, wi)
-            q2 = _refit_degenerate_quad(
-                masks[(b, wi)], quads[b, s], areas[b, s], H, W,
-                conn4=(s % Ks) >= K)  # split slots hold 4-conn components
-            if q2 is None:
-                continue
-            sh = np.sum(q2[:, 0] * np.roll(q2[:, 1], -1)
-                        - np.roll(q2[:, 0], -1) * q2[:, 1])
-            if sh < 0:
-                q2 = q2[[0, 3, 2, 1]]
-            if _quad_gates(q2[None, None], areas[b, s][None, None],
-                           H, W, params)[0, 0]:
-                quads[b, s] = q2
-                valid[b, s] = True
+    # Degenerate-extraction recovery: an extractor-emitted candidate
+    # that the shape gates reject may be an extreme-oblique marker
+    # whose farthest-point corners collapsed; re-fit the max-area
+    # hull quad and re-gate (decode is the backstop downstream).
+    # Trigger ONLY on the degeneracy signature — a collapsed corner
+    # pair (tiny edge) or a non-convex corner order — so ordinary
+    # fill-gate junk never pays the re-fit (scipy label on a crop).
+    edges_ = np.roll(quads, -1, axis=-2) - quads
+    elen_ = np.linalg.norm(edges_, axis=-1)
+    enx_ = np.roll(edges_, -1, axis=-2)
+    cr_ = edges_[..., 0] * enx_[..., 1] - edges_[..., 1] * enx_[..., 0]
+    degen = (elen_.min(-1) < 5.0) | ~((cr_ > 0).all(-1) | (cr_ < 0).all(-1))
+    masks: dict = {}  # several rejects often share a window: unpack once
+    for b, s in zip(*np.nonzero(emitted & ~valid & degen)):
+        wi = s // Ks
+        if (b, wi) not in masks:
+            masks[(b, wi)] = mask_of(b, wi)
+        q2 = _refit_degenerate_quad(
+            masks[(b, wi)], quads[b, s], areas[b, s], H, W,
+            conn4=(s % Ks) >= K)  # split slots hold 4-conn components
+        if q2 is None:
+            continue
+        sh = np.sum(q2[:, 0] * np.roll(q2[:, 1], -1)
+                    - np.roll(q2[:, 0], -1) * q2[:, 1])
+        if sh < 0:
+            q2 = q2[[0, 3, 2, 1]]
+        if _quad_gates(q2[None, None], areas[b, s][None, None],
+                       H, W, params)[0, 0]:
+            quads[b, s] = q2
+            valid[b, s] = True
     return quads, valid, areas
 
 
@@ -538,38 +562,31 @@ def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params):
     them).
 
     Same output contract as :func:`quads_from_masks`.  The C labeler reads
-    the packed rows directly and skips empty bytes; a window is unpacked
+    the packed rows of the whole batch in one call, with the GIL released,
+    and skips empty bytes; a window is unpacked
     only to re-fit a candidate that the gates rejected
     (vican_tpu/perception.py:496-535).  Without the C module the masks are
     unpacked for the scipy labeler.
     """
+    return _gated_candidates(*_packed_slots(packed, H, W, params), H, W, params)
+
+
+def _packed_slots(packed: np.ndarray, H: int, W: int, params):
+    """The labeler's half of :func:`quads_from_packed_masks`:
+    ``(corners, areas, counts, mask_of)`` for :func:`_gated_candidates`.
+    With the C module it runs without the GIL (:func:`_c_slots`)."""
     global last_labeler
     ccl = _get_ccl()
     if ccl is None:
-        fg = np.unpackbits(packed, axis=-1, bitorder="little")[..., :W]
-        return quads_from_masks(fg[:, :, :H], params)
-
-    B, Wn, _, Wb = packed.shape
-    K2 = params.max_candidates_4conn
-    max_area = params.max_area_rate * H * W
+        fg = np.unpackbits(packed, axis=-1, bitorder="little")[:, :, :H, :W]
+        last_labeler = "scipy"
+        return (*_scipy_slots(fg, params), lambda b, wi: fg[b, wi])
 
     def mask_of(b, wi):  # unpacked lazily, only for gate-rejected re-fits
         return np.unpackbits(packed[b, wi, :H], axis=-1, bitorder="little")[:, :W]
 
     last_labeler = "c"
-    if K2 > 0:
-        return _collect_window_candidates(
-            B, Wn, H, W, params,
-            lambda b, wi: ccl.quad_candidates_packed2(
-                np.ascontiguousarray(packed[b, wi, :H]), H, W, Wb,
-                params.max_candidates, K2, params.min_area, max_area),
-            K2=K2, mask_of=mask_of)
-    return _collect_window_candidates(
-        B, Wn, H, W, params,
-        lambda b, wi: ccl.quad_candidates_packed(
-            np.ascontiguousarray(packed[b, wi, :H]), H, W, Wb,
-            params.max_candidates, params.min_area, max_area),
-        mask_of=mask_of)
+    return (*_c_slots(ccl, packed, H, W, params), mask_of)
 
 
 def _get_thresh():
@@ -677,18 +694,67 @@ def _unpack_pnp_result(out: np.ndarray):
             out[:, 10:19].reshape(N, 3, 3), out[:, 19:22], out[:, 22])
 
 
+@dataclass
+class _Fed:
+    """One batch as the feed stage hands it to the drain: the meta data of
+    its frames, the frames ``g`` on the device, the cameras' intrinsics and
+    distortions on the device, ``candidates``, the ``pure`` mode's tensors
+    on the device, or ``slots``, the host labeler's (:func:`_packed_slots`),
+    and ``ready``, a CUDA event on the feed's stream after its last device
+    work (None on the CPU)."""
+
+    files: list
+    cams: list
+    nb: int
+    g: torch.Tensor
+    Ks: torch.Tensor
+    dists: torch.Tensor
+    candidates: tuple = ()
+    slots: tuple | None = None
+    ready: object = None
+
+
+class _Fetched:
+    """A tensor on its way to the host (the packed masks, the packed
+    ``(B*D, 23)`` PnP result): on the card, a non-blocking copy into
+    pinned memory on the calling thread's current stream and the CUDA event
+    after it, so :meth:`numpy` waits for that stream alone; on the CPU,
+    the tensor itself."""
+
+    def __init__(self, out: torch.Tensor):
+        self.event = None
+        if out.is_cuda:
+            self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self.host.copy_(out, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(out.device))
+        else:
+            self.host = out
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 class _Program:
     """The per-batch program for one configuration: ``mode`` ``"device"``
     (threshold kernel on the card, packed masks to the host), ``"host"``
     (host threshold on the exact frame) or ``"pure"`` (threshold kernel and
     candidates on the card); detect and PnP are shared
-    (vican_tpu/perception.py:1158-1182, 1420-1681)."""
+    (vican_tpu/perception.py:1158-1182, 1420-1681).  :meth:`feed` runs on
+    the pipeline's worker thread and :meth:`drain` on the calling thread
+    (:func:`_edges`)."""
 
     def __init__(self, mode, aruco, marker_size, corner_refine, flags, lm_iters,
                  detector_params, device):
         from .ops import detect as D_
         from .ops.dictionary import get_dictionary, marker_bits_table
 
+        if device.type == "cuda" and device.index is None:
+            # the worker thread enters this device: its own current device
+            # is cuda:0, and under mesh= a rank's card need not be
+            device = torch.device("cuda", torch.cuda.current_device())
         self.mode = mode
         self.device = device
         self.marker_size = float(marker_size)
@@ -701,60 +767,85 @@ class _Program:
                                                        "corner_refine"))
         self.params = D_.resolve_error_correction(params, aruco)
 
-    def detect(self, gray_u8: torch.Tensor, quads, valid, areas):
-        """Refine, decode and dedup the candidates (numpy arrays from the
-        host, or tensors on the device) over the resident frames
-        (:func:`vican_torch.ops.detect.detect_candidates`)."""
-        from .ops import detect as D_
+    def feed(self, files, cams, nb, gray, timer: PhaseTimer) -> _Fed:
+        """The feed stage of one batch (uint8 gray ``(B, H, W)`` as given):
+        upload, threshold, and the labeler (the host modes) or the device
+        candidates (``pure``).  On the card it runs on the caller's current
+        stream, the feed's own (:func:`_edges`).
 
-        return D_.detect_candidates(gray_u8.to(torch.float32), quads, valid, areas,
-                                    self.codes, self.n_bits, self.params)
-
-    def detect_frames(self, gray: np.ndarray | torch.Tensor, g: torch.Tensor, timer: PhaseTimer):
-        """Threshold, candidates and the detect step of one batch: ``gray``
-        uint8 ``(B, H, W)`` as given, ``g`` the same frames on the device.
-        Returns the :class:`~vican_torch.ops.detect.Detections`."""
+        The host modes' candidates are split between the stages: the C
+        labeler, which releases the GIL, runs here; the winding, the gates
+        and the re-fit (:func:`_gated_candidates`, numpy and Python that
+        hold the GIL) run in :meth:`drain`, both timed as ``"host
+        candidates"``.  With the whole of :func:`quads_from_packed_masks`
+        here, a 384-frame run on an H100 (80GB HBM3, 700 W) read its PnP at
+        7.3-8.1 s against 4.6-4.8 s in order, and was no faster than the
+        in-order run: the worker's Python and the drain's launch loop
+        convoyed on the GIL."""
         from .ops import detect as D_
         from .ops.threshold import multi_threshold
 
-        p = self.params
+        p, dev = self.params, self.device
         H, W = gray.shape[1:]
-        if self.mode == "pure":
-            with timer.phase("threshold kernel"):
-                packed = multi_threshold(g, p.win_sizes, p.thresh_const)
-            with timer.phase("device candidates"):
-                quads, valid, areas = D_.device_candidates(D_.unpack_masks(packed, W), p)
-                del packed
-            with timer.phase("detect program"):
-                return self.detect(g, quads, valid, areas)
-        if self.mode == "device":
-            with timer.phase("threshold kernel"):
-                packed = multi_threshold(g, p.win_sizes, p.thresh_const)
-            with timer.phase("masks to host"):
-                packed = packed.cpu().numpy()
-        else:
-            with timer.phase("host threshold"):
-                host = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
-                packed = host_threshold(host, p)
-        with timer.phase("host candidates"):
-            quads, valid, areas = quads_from_packed_masks(packed, H, W, p)
-        with timer.phase("detect program"):
-            return self.detect(g, quads, valid, areas)
-
-    def run(self, gray: np.ndarray | torch.Tensor, Ks: np.ndarray, dists: np.ndarray,
-            timer: PhaseTimer) -> np.ndarray:
-        """One batch: uint8 gray ``(B, H, W)`` -> the packed ``(B*D, 23)``
-        result on the host."""
-        dev = self.device
-        with timer.phase("upload"):
+        Ks, dists = _camera_arrays(cams)
+        with timer.phase("upload", stage="feed"):
             g = torch.as_tensor(gray).to(dev).contiguous()
             Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
             dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
-        det = self.detect_frames(gray, g, timer)
-        with timer.phase("PnP"):
-            out = _pnp_block(det, Ks_d, dists_d, self.marker_size, self.lm_iters,
-                             self.pnp_method).cpu().numpy()
-        return out
+        if self.mode == "pure":
+            with timer.phase("threshold kernel", stage="feed"):
+                packed = multi_threshold(g, p.win_sizes, p.thresh_const)
+            with timer.phase("device candidates", stage="feed"):
+                candidates = D_.device_candidates(D_.unpack_masks(packed, W), p)
+                del packed
+            slots = None
+        else:
+            if self.mode == "device":
+                with timer.phase("threshold kernel", stage="feed"):
+                    packed = multi_threshold(g, p.win_sizes, p.thresh_const)
+                with timer.phase("masks to host", stage="feed"):
+                    packed = _Fetched(packed).numpy()
+            else:
+                with timer.phase("host threshold", stage="feed"):
+                    host = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
+                    packed = host_threshold(host, p)
+            with timer.phase("host candidates", stage="feed"):
+                slots = _packed_slots(packed, H, W, p)
+            candidates = ()
+        ready = None
+        if g.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        return _Fed(files, cams, nb, g, Ks_d, dists_d, candidates, slots, ready)
+
+    def drain(self, fed: _Fed, timer: PhaseTimer) -> _Fetched:
+        """The drain stage of one batch on the calling thread's current
+        stream: wait for the feed's event, gate the host labeler's slots,
+        refine, decode and dedup the candidates over the resident frames
+        (:func:`vican_torch.ops.detect.detect_candidates`), solve PnP, and
+        start the packed result's fetch."""
+        from .ops import detect as D_
+
+        if fed.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(fed.ready)
+            # the tensors the feed made on its stream are read on this one:
+            # the caching allocator must not hand their memory back to the
+            # feed before this stream's work on them is done
+            for t in (fed.g, fed.Ks, fed.dists, *fed.candidates):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(stream)
+        candidates = fed.candidates
+        if fed.slots is not None:
+            with timer.phase("host candidates", stage="drain"):
+                candidates = _gated_candidates(*fed.slots, *fed.g.shape[1:], self.params)
+        with timer.phase("detect program", stage="drain"):
+            det = D_.detect_candidates(fed.g.to(torch.float32), *candidates,
+                                       self.codes, self.n_bits, self.params)
+        with timer.phase("PnP", stage="drain"):
+            out = _pnp_block(det, fed.Ks, fed.dists, self.marker_size, self.lm_iters,
+                             self.pnp_method)
+        return _Fetched(out)
 
 
 def _camera_arrays(cams):
@@ -807,21 +898,72 @@ def _program_mode(mode: str, corner_refine: str) -> str:
     return mode
 
 
-def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool,
+def _pipeline_depth() -> int:
+    """Batches in flight on the feed side: ``VICAN_TPU_PIPELINE_DEPTH``,
+    default 2 (0 or unset), at least 1 (vican_tpu/perception.py:1737-1739)."""
+    return max(1, int(os.environ.get("VICAN_TPU_PIPELINE_DEPTH") or 2) or 2)
+
+
+def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
            part=(0, 1)) -> tuple[dict, list]:
-    """Run ``(files, cams, gray (nb, H, W) uint8)`` batches through
-    ``program``, in order: a tail batch is padded to ``B`` frames with
-    copies of its last frame and camera (vican_tpu/perception.py:1343-1345)
-    and only its ``nb`` real frames enter the dict.  ``part = (rank,
-    world)``: this process runs only the rank's ``B / world`` frames of
-    every batch.  Returns the dict and its keys batch by batch."""
+    """Run batches through ``program`` on the two-thread feed/drain
+    pipeline of vican_tpu/perception.py:1725-1758.  ``loads[i]()`` returns
+    batch i's ``(files, cams, gray (nb, H, W) uint8)``.  A tail batch is
+    padded to ``B`` frames with copies of its last frame and camera
+    (vican_tpu/perception.py:1343-1345) and only its ``nb`` real frames
+    enter the dict.  ``part = (rank, world)``: this process runs only the
+    rank's ``B / world`` frames of every batch.  Returns the dict and its
+    keys batch by batch.
+
+    The feed (one worker thread, :func:`_pipeline_depth` batches in flight)
+    loads each batch (decodes files: cv2 releases the GIL), uploads it,
+    thresholds it and labels it (:meth:`_Program.feed`).  The calling
+    thread drains in batch order (:meth:`_Program.drain`): the candidates'
+    gates, detect and PnP, then batch i's result enters the dict after
+    batch i+1's detection was launched (JAX's ``pending_d``).  Where this
+    departs from JAX's split: JAX labels on the main thread (``stage_ccl``,
+    vican_tpu/perception.py:1437-1461), which overlaps the device's work
+    because its detection program is dispatched asynchronously.  Here
+    detect and PnP are eager, and their host launch loop IS the dispatch,
+    so the labeler runs on the worker to overlap with them; the C labeler
+    and host threshold release the GIL (``_native``), and the Python that
+    follows the labeler stays on the drain (:meth:`_Program.feed` says
+    why).
+
+    Threads and streams.  On the card the worker enters the program's
+    device (the caller's, which under ``mesh=`` need not be ``cuda:0``) and
+    a stream of its own: on the shared default stream the masks' fetch
+    would queue behind the drain's PnP.  The feed stream first waits for
+    the caller's stream (frames the caller queued on the card).  The drain
+    waits on each batch's event and records the feed's tensors on its own
+    stream (:meth:`_Program.drain`).  :class:`PhaseTimer` synchronizes the
+    calling thread's stream only, so the stages do not wait for each
+    other's kernels; its events carry ``stage`` ``"feed"`` or ``"drain"``.
+    On the CPU all stream handling is skipped and the same two threads
+    run.  The worker writes ``multi_threshold.launches`` and
+    :data:`last_labeler`, which read as after an in-order run once the
+    call returns.
+
+    Order and errors.  The dict is filled in batch order and, within a
+    batch, slot order, whatever the depth.  An exception in either stage
+    is raised by the call; the batches not yet started are cancelled.
+    With depth d, up to d + 1 batches are resident (d fed, one draining).
+    """
     out: dict = {}
     order: list = []
     rank, world = part
     Bs = B // world
     Dcap = program.params.max_detections
+    dev = program.device
+    depth = _pipeline_depth()
     total = 0
-    for bi, (files, cams, gray) in enumerate(batches):
+    feed_stream = None
+    if dev.type == "cuda":
+        feed_stream = torch.cuda.Stream(dev)
+        feed_stream.wait_stream(torch.cuda.current_stream(dev))
+
+    def feed(load) -> _Fed:
+        files, cams, gray = load()
         nb = len(files)
         if nb < B:
             pad = B - nb
@@ -833,11 +975,16 @@ def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool,
         lo = rank * Bs
         files, cams, gray = files[lo:lo + Bs], cams[lo:lo + Bs], gray[lo:lo + Bs]
         nb = max(0, min(nb - lo, Bs))
-        Ks, dists = _camera_arrays(cams)
-        result = program.run(gray, Ks, dists, timer)
+        if feed_stream is None:
+            return program.feed(files, cams, nb, gray, timer)
+        with torch.cuda.device(dev), torch.cuda.stream(feed_stream):
+            return program.feed(files, cams, nb, gray, timer)
+
+    def consume(bi, files, cams, nb, fetched: _Fetched):
+        nonlocal total
         keys = []
-        with timer.phase("dict"):
-            corners, ids, ok, R, t, err = _unpack_pnp_result(result)
+        with timer.phase("dict", stage="drain"):
+            corners, ids, ok, R, t, err = _unpack_pnp_result(fetched.numpy())
             for j in range(nb):
                 for k in range(Dcap):
                     e = j * Dcap + k
@@ -855,6 +1002,24 @@ def _edges(batches, B, program: _Program, timer: PhaseTimer, verbose: bool,
         order.append(keys)
         if verbose:
             print(f"  batch {bi}: {nb} images, {int(ok[: nb * Dcap].sum())} detections")
+
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vican-feed")
+    try:
+        futs = deque(ex.submit(feed, load) for load in loads[:depth])
+        pending = None
+        for bi in range(len(loads)):
+            fed = futs.popleft().result()
+            if bi + depth < len(loads):
+                futs.append(ex.submit(feed, loads[bi + depth]))
+            fetched = program.drain(fed, timer)
+            if pending is not None:
+                consume(*pending)
+            pending = (bi, fed.files, fed.cams, fed.nb, fetched)
+            del fed  # its frames and candidates, once the drain's stream is done
+        if pending is not None:
+            consume(*pending)
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
     if verbose:
         n_images = len({v["im_filename"] for v in out.values()})
         print(f"Found markers in {n_images} images ({total} detections).")
@@ -915,9 +1080,12 @@ def estimate_pose_gray(
                        corner_refine, flags, lm_iters, detector_params, device)
     timer = timer or PhaseTimer(verbose=False, device=device)
     B = batch_size
-    batches = ((im_filenames[s:s + B], cams[s:s + B], gray[s:s + B])
-               for s in range(0, len(im_filenames), B))
-    return _edges(batches, B, program, timer, verbose)[0]
+
+    def load(s):
+        return im_filenames[s:s + B], cams[s:s + B], gray[s:s + B]
+
+    loads = [functools.partial(load, s) for s in range(0, len(im_filenames), B)]
+    return _edges(loads, B, program, timer, verbose)[0]
 
 
 def estimate_pose_batched(
@@ -988,20 +1156,26 @@ def estimate_pose_batched(
     B = -(-batch_size // world) * world
     gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
 
-    def batches():
-        for start in range(0, len(im_filenames), B):
-            files, bcams = im_filenames[start:start + B], cams[start:start + B]
-            images = load_images(files, grayscale=gray_direct)
-            decl = res_of(bcams[0])
-            if None not in decl and tuple(images.shape[1:3]) != decl:
-                raise ValueError(
-                    f"camera {bcams[0].id!r} declares resolution {decl[1]}x{decl[0]} but "
-                    f"{files[0]!r} decodes to {images.shape[2]}x{images.shape[1]}")
-            gray = images if gray_direct else host_preprocess(
-                images, float(brightness), float(contrast))
-            yield files, bcams, gray
+    def load(start):
+        """Decode, check and preprocess one batch (JAX's ``prepare``,
+        vican_tpu/perception.py:1325-1363); runs on the feed thread."""
+        files, bcams = im_filenames[start:start + B], cams[start:start + B]
+        images = load_images(files, grayscale=gray_direct)
+        decl = res_of(bcams[0])
+        if None not in decl and tuple(images.shape[1:3]) != decl:
+            raise ValueError(
+                f"camera {bcams[0].id!r} declares resolution "
+                f"{decl[1]}x{decl[0]} but {files[0]!r} decodes to "
+                f"{images.shape[2]}x{images.shape[1]} — fix the camera "
+                "record, or leave resolution_x/y as None to group by "
+                "actual image size"
+            )
+        gray = images if gray_direct else host_preprocess(
+            images, float(brightness), float(contrast))
+        return files, bcams, gray
 
+    loads = [functools.partial(load, s) for s in range(0, len(im_filenames), B)]
     if mesh is None:
-        return _edges(batches(), B, program, timer, verbose)[0]
-    out, order = _edges(batches(), B, program, timer, verbose, part=(rank, world))
+        return _edges(loads, B, program, timer, verbose)[0]
+    out, order = _edges(loads, B, program, timer, verbose, part=(rank, world))
     return _gather_edges(mesh, out, order)
