@@ -8,7 +8,8 @@ It builds the port's CUDA kernels from ``vican_torch/csrc`` (one ``nvcc``
 per source, all at once) and the C modules, holds each kernel against
 its plain PyTorch version at the main paths' shapes (``pwr_apply`` at cells
 B's and C's in both its designs, one read and two; ``thin_mv`` also at the
-shape of the JAX package's matvec probe) and times both with each kernel's
+shape of the JAX package's matvec probe; ``pnp_block`` on seeded slots and
+on the perception scene's first batch) and times both with each kernel's
 device split, then drives two paths:
 
 - the solver, ``vican_torch.bipgo.bipartite_se3sync``, on three synthetic
@@ -25,7 +26,10 @@ device split, then drives two paths:
   estimate_pose_gray``, on 384 frames at 1280x720 (8 cameras around a
   24-marker cube, 48 timesteps, rendered on the card by
   ``vican_torch.render``), thresholded by the ``multi_threshold`` kernel and
-  labeled by the C labeler; the same frames on the CPU must give the same
+  labeled by the C labeler, PnP solved by the ``pnp_block`` kernel once a
+  batch (:func:`pnp_phase` then holds it to its plain version on the
+  scene's first batch and on seeded slots); the same frames on the CPU
+  must give the same
   detections, the edges must be accurate against ground truth, and
   ``bipartite_se3sync`` on them must recover all 8 cameras; then the
   ``host`` mode (host threshold, no kernel launch) over the same frames and
@@ -40,8 +44,9 @@ device split, then drives two paths:
 - the sharded solve, :func:`mesh_phase`: in a child process, one rank over
   NCCL, ``bipartite_se3sync(mesh=make_mesh())`` on cell C's problem, whose
   large-graph route runs ``pwr_apply`` on the rank's chunks, against
-  ``mesh=None``, and ``se3sync_sharded`` on cell A's against
-  ``bipartite_se3sync``;
+  ``mesh=None``, ``se3sync_sharded`` on cell A's against
+  ``bipartite_se3sync``, and ``cam.estimate_pose_mp(mesh=...)`` on 64 of
+  the scene's frames against ``mesh=None``;
 - the tutorial flow (examples/tutorial.py, the reference's main.ipynb),
   :func:`tutorial_phase`: a 250-frame cube capture and a 4-camera,
   252-frame room capture rendered on the card at 1280x720, the tutorial's
@@ -57,8 +62,10 @@ kernels' JSON line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, or without the rest of the repository beside it, it fails before
 printing any result.
 
-``python3 chip_smoke.py --perception`` builds the threshold kernel and the
-C modules, runs the perception phases and, where the checkout has the
+Every perception run must launch the PnP kernel once per batch.
+
+``python3 chip_smoke.py --perception`` builds the threshold and PnP
+kernels and the C modules, runs the perception phases and, where the checkout has the
 host modes, :func:`perception_modes`, and stops (it also runs in an older
 checkout, to time its perception in the same call);
 ``python3 chip_smoke.py --kernels`` stops after the kernel phases;
@@ -68,13 +75,15 @@ older checkout's kernels too; ``python3 chip_smoke.py --threshold`` builds
 the threshold kernel, renders the 32 frames its phase needs, runs
 :func:`threshold_phase` (it too runs in an older checkout), then, where
 the checkout has the launch plan, :func:`threshold_sweep`, and stops;
-``python3 chip_smoke.py --tutorial`` builds the threshold kernel and the C
-modules, runs :func:`tutorial_phase`, and stops; ``--pure`` builds the
-same, runs the perception phases and :func:`pure_phase`, with ``--save
+``python3 chip_smoke.py --tutorial`` builds the threshold and PnP kernels
+and the C modules, runs :func:`tutorial_phase`, and stops; ``--pnp`` builds
+the same, renders 32 frames and runs :func:`pnp_phase` alone; ``--pure``
+builds the same, runs the perception phases and :func:`pure_phase`, with ``--save
 PATH`` writes the pure phase's frames and both modes' edges to ``PATH``
 (:func:`save_pure_frames`), and stops;
-``--mesh`` builds ``pwr.cu`` and the C modules, runs :func:`mesh_phase`,
-and stops; ``--pipeline`` builds the threshold kernel and the C modules,
+``--mesh`` builds ``pwr.cu``, the threshold and PnP kernels and the C
+modules, runs :func:`mesh_phase`, and stops; ``--pipeline`` builds the
+threshold and PnP kernels and the C modules,
 renders the perception scene, runs it once to warm up, then
 :func:`pipeline_phase`, and stops.
 """
@@ -135,6 +144,36 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PEAK_FP32_OPS = 128 * 132 * 1.98e9
+# float64 outside the tensor cores (NVIDIA's data sheet); the 67 TFLOP/s
+# of its float64 tensor cores are for matrix products, which PnP's small
+# dependent solves are not
+PEAK_FP64_FLOPS = 34e12
+
+# PnP (csrc/pnp.cu): float64 operations of one valid slot, tallied from the
+# kernel's source: each +, -, x, / and each sqrt, sin, cos, acos counts
+# one; a product or quotient of two dual numbers with six tangents 19, a
+# sum 7.  An LM trip: the dual Rodrigues (387), four dual projections
+# (2196), the J^T J, J^T r and cost sums (456), the damped 6x6 solve (209),
+# the trial step and its cost (265), the update (3); a pass adds so3_log
+# and the closing Rodrigues (71); IPPE: the 8-trip undistortion (1488),
+# the homography's 8x8 solve (444), the rest of IPPE with both candidates
+# and their translations (972); the iterative method's initialization: the
+# undistortion, the homography, the SVD projection (1456) and the rest
+# (33); the reprojection error (220).  The bound counts the valid slots
+# only: the kernel returns at once from the others.
+PNP_FLOPS = dict(lm_trip=3516, lm_pass=71, ippe=2904, iterative_init=3421, error=220)
+# Kernel vs plain bars (float64): the LM stops anywhere in the float64
+# basin of its minimum (where the cost no longer tells two poses apart), so
+# two float64 implementations of it land up to ~7e-8 apart in a pose entry
+# on the few ill-conditioned slots (small, far markers); the plain version
+# batched against itself slot by slot differs by 3.5e-8 on the CPU.  The
+# bar on every slot is 15x that; the median gap must stay at rounding level.
+PNP_TOL = 1e-6             # R entries, t (m), reprojection error (px)
+PNP_MEDIAN_TOL = 1e-10     # median R-entry and t gaps
+PNP_MARKER = 0.138         # tests/test_torch_pnp.py's scene
+PNP_DIST = np.array([-0.25, 0.08, 1.5e-3, -1.2e-3, -0.012, -0.02, 0.004, -0.001,
+                     0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+PNP_SEEDED = (171, 24)     # cameras x slots: 4104 seeded slots a case
 
 # Perception scene: the JAX package's perception-bench recipe
 # (vican_tpu/synthetic.py:273-323: f = 0.55 (W + H), the 24-marker cube of
@@ -297,27 +336,39 @@ def solve(prob, **env):
     return est, seconds, buf.getvalue().splitlines()
 
 
-def _ptxas_summary(log: str) -> dict:
-    """Kernel count, most registers and shared memory of any kernel, and
-    the kernels that spill, from nvcc's ``-Xptxas -v`` report."""
+def _ptxas_functions(log: str) -> dict:
+    """Each function of nvcc's ``-Xptxas -v`` report, by (mangled) name:
+    whether it is a kernel, and its registers, shared memory, stack frame
+    and spill bytes where the report gives them."""
     per, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+        m = re.search(r"(Compiling entry function|Function properties for) '?([^'\s]+)", line)
         if m:
-            name = m.group(1)
-            per[name] = {"registers": 0, "smem": 0, "spill_stores": 0}
-        elif name is not None:
+            name = m.group(2)
+            per.setdefault(name, {"kernel": False})["kernel"] |= m.group(1).startswith("Comp")
+            continue
+        if name is not None:
             for key, pat in (("registers", r"Used (\d+) registers"),
                              ("smem", r"(\d+) bytes smem"),
-                             ("spill_stores", r"(\d+) bytes spill stores")):
+                             ("stack_frame", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
                 m = re.search(pat, line)
                 if m:
                     per[name][key] = int(m.group(1))
+    return per
+
+
+def _ptxas_summary(log: str) -> dict:
+    """Kernel count, most registers and shared memory of any kernel, and
+    the functions that spill, from nvcc's ``-Xptxas -v`` report."""
+    per = _ptxas_functions(log)
+    kernels = [v for v in per.values() if v["kernel"]]
     return {
-        "kernels": len(per),
-        "max_registers": max((v["registers"] for v in per.values()), default=0),
-        "max_smem": max((v["smem"] for v in per.values()), default=0),
-        "spilling": sorted(k for k, v in per.items() if v["spill_stores"]),
+        "kernels": len(kernels),
+        "max_registers": max((v.get("registers", 0) for v in kernels), default=0),
+        "max_smem": max((v.get("smem", 0) for v in kernels), default=0),
+        "spilling": sorted(k for k, v in per.items() if v.get("spill_stores")),
     }
 
 
@@ -856,6 +907,161 @@ def threshold_sweep(batch) -> None:
          windows_ms=windows_ms)
 
 
+def pnp_flops(method: str, lm_iters: int) -> int:
+    """Float64 operations of one valid slot (:data:`PNP_FLOPS`)."""
+    f = PNP_FLOPS
+    lm = f["lm_pass"] + lm_iters * f["lm_trip"]
+    init = f["ippe"] + lm if method == "ippe_square" else f["iterative_init"] + 2 * lm
+    return init + f["error"]
+
+
+def pnp_slots(B: int, D: int, seed: int, distorted: bool, dev):
+    """``B`` cameras (640x360, f = 420) x ``D`` slots of 0.138 m markers
+    0.6-3 m away, tilted up to 60 degrees, their corners projected and
+    jittered by 0.2 px (tests/test_torch_pnp.py's scene, with and without
+    its distortion); a third of the slots not valid, all-zero quads in a
+    tenth, half of those still valid.  The PnP block's inputs on ``dev``."""
+    import torch
+
+    from vican_torch.ops.lie import rodrigues
+    from vican_torch.ops.pnp import marker_object_points, project_points
+
+    rng = np.random.default_rng(seed)
+    n = B * D
+    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
+    Ks = np.repeat(K[None], B, 0)
+    dists = np.repeat((PNP_DIST if distorted else np.zeros(14))[None], B, 0)
+    axis = rng.normal(size=(n, 3))
+    axis *= rng.uniform(0.0, np.pi / 3, (n, 1)) / np.linalg.norm(axis, axis=1, keepdims=True)
+    flip = torch.diag(torch.tensor([1.0, -1.0, -1.0], dtype=torch.float64))
+    R = rodrigues(torch.tensor(axis)) @ flip  # marker +z toward the camera
+    z = rng.uniform(0.6, 3.0, n)
+    t = np.stack([rng.uniform(-0.25, 0.25, n) * z, rng.uniform(-0.15, 0.15, n) * z, z], 1)
+    im = np.arange(n) // D
+    px = project_points(marker_object_points(PNP_MARKER), R, torch.tensor(t),
+                        torch.tensor(Ks[im]), torch.tensor(dists[im])).numpy()
+    px = px + rng.normal(scale=0.2, size=px.shape)
+    valid = rng.random(n) > 1 / 3
+    zero = rng.random(n) < 0.1
+    px[zero] = 0.0
+    valid[zero & (rng.random(n) < 0.5)] = False
+    ids = rng.integers(0, 1000, n)
+    return [torch.tensor(a).to(dev) for a in (px, ids, valid, Ks, dists)]
+
+
+def _pnp_gaps(out, ref) -> dict:
+    """Kernel-vs-plain gaps of two packed ``(N, 23)`` buffers: the largest
+    and median pose-entry, translation and error gaps over the slots the
+    plain version calls ok, and whether ok, corners and ids are identical
+    and the slots not ok zero past their id where the plain version's are."""
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    ok = ref[:, 9] > 0.5
+    dR = np.abs(out[ok, 10:19] - ref[ok, 10:19]).max(1)
+    dt = np.abs(out[ok, 19:22] - ref[ok, 19:22]).max(1)
+    de = np.abs(out[ok, 22] - ref[ok, 22])
+    zero_ref = (ref[:, 9:] == 0).all(1)
+    return dict(slots=len(ref), ok=int(ok.sum()),
+                same_ok=bool(np.array_equal(out[:, 9], ref[:, 9])),
+                same_head=bool(np.array_equal(out[:, :9], ref[:, :9])),
+                same_zeros=bool((out[zero_ref, 9:] == 0).all()),
+                R=float(dR.max()), t=float(dt.max()), err=float(de.max()),
+                R_median=float(np.median(dR)), t_median=float(np.median(dt)))
+
+
+def capture_pnp_batch(frames, names, frame_cams) -> list:
+    """The PnP block's arguments for P's first batch, as the drain hands
+    them to ``vican_torch.ops.pnp.pnp_block`` (corners, ids, valid, Ks,
+    dists, marker size, LM trips, method), copied on the card."""
+    import torch
+
+    from vican_torch.ops import pnp
+    from vican_torch.perception import estimate_pose_gray
+
+    seen, wrapper = [], pnp.pnp_block
+
+    def spy(*args):
+        if not seen:
+            seen.append([a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return wrapper(*args)
+
+    B = PERCEPTION_KW["batch_size"]
+    spy.launches = 0  # the wrapper counts on the module's name, the spy here
+    pnp.pnp_block = spy
+    try:
+        estimate_pose_gray(frames[:B], names[:B], frame_cams[:B], **PERCEPTION_KW)
+    finally:
+        pnp.pnp_block = wrapper
+    return seen[0]
+
+
+def pnp_phase(dev, p_batch, ptxas: str = "") -> dict:
+    """The PnP kernel against ``pnp_block_plain`` on the card: 4104 seeded
+    slots (:func:`pnp_slots`) for both methods, with and without
+    distortion, then P's first batch of detections (``p_batch``, from
+    :func:`capture_pnp_batch`) in both methods.  ``ok``, corners and ids
+    must be identical, the pose and error gaps within :data:`PNP_TOL` and
+    their medians within :data:`PNP_MEDIAN_TOL`.  At P's shape, in P's
+    method, the kernel's device time (``_device_ms``), back-to-back rate
+    and launch time beside the plain version's and the bound; the other
+    method's device time; the kernel's registers and stack from its
+    ``-Xptxas -v`` report."""
+    import torch
+
+    from vican_torch.ops.pnp import pnp_block, pnp_block_plain
+
+    corners, ids, valid, Ks, dists, marker_size, lm_iters, method = p_batch
+    cases = {}
+    for m in ("ippe_square", "iterative"):
+        for distorted in (False, True):
+            tag = f"seeded {m} {'distorted' if distorted else 'pinhole'}"
+            cases[tag] = (pnp_slots(*PNP_SEEDED, 7 + 2 * distorted + (m == "iterative"),
+                                    distorted, dev), PNP_MARKER, 20, m)
+        cases[f"P batch {m}"] = ([corners, ids, valid, Ks, dists], marker_size, lm_iters, m)
+    checks, faults = [], []
+    for tag, (args, size, iters, m) in cases.items():
+        out = pnp_block(*args, size, iters, m)
+        torch.cuda.synchronize()
+        gaps = _pnp_gaps(out, pnp_block_plain(*args, size, iters, m))
+        checks.append(dict(case=tag, **gaps))
+        if not (gaps["same_ok"] and gaps["same_head"] and gaps["same_zeros"]
+                and max(gaps["R"], gaps["t"], gaps["err"]) <= PNP_TOL
+                and max(gaps["R_median"], gaps["t_median"]) <= PNP_MEDIAN_TOL and gaps["ok"]):
+            faults.append(f"{tag}: {gaps}")
+        del out
+
+    def run(m=method):
+        return pnp_block(corners, ids, valid, Ks, dists, marker_size, lm_iters, m)
+
+    other = "iterative" if method == "ippe_square" else "ippe_square"
+    kernel_ms = _device_ms(run)
+    ms = _rate_ms(run)
+    launch_ms = _median_ms(run)
+    other_ms = _device_ms(lambda: run(other))
+    plain_ms = _median_ms(lambda: pnp_block_plain(corners, ids, valid, Ks, dists, marker_size,
+                                                  lm_iters, method), reps=5)
+    n_valid = int(valid.sum())
+    N, B = corners.shape[0], Ks.shape[0]
+    nbytes = N * (8 * 8 + 8 + 1 + 23 * 8) + B * (9 + 14) * 8
+    ops = n_valid * pnp_flops(method, lm_iters)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP64_FLOPS
+    resources = {k: v for k, v in _ptxas_functions(ptxas).items()
+                 if "pnp_block_kernel" in k or "refine_lm" in k}
+    row = dict(shape=[N, 4, 2], cameras=B, valid_slots=n_valid, method=method,
+               lm_iters=lm_iters, checks=checks, kernel_ms=kernel_ms, ms=ms,
+               launch_ms=launch_ms, plain_ms=plain_ms, **{f"kernel_ms_{other}": other_ms},
+               bytes=nbytes, ops=ops, flops_per_slot=pnp_flops(method, lm_iters),
+               bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, library="none: no single PyTorch call computes it",
+               max_abs_err=max(max(c["R"], c["t"], c["err"]) for c in checks),
+               design="one thread per slot, float64, 6-tangent dual numbers, warp blocks",
+               ptxas=resources)
+    emit("pnp_kernel", name="pnp_block", **row)
+    if faults:
+        raise AssertionError(f"pnp: {faults}")
+    return row
+
+
 def _ragged(batch):
     """A 2-frame 721 x 1283 batch from the scene's frames (edge rows and
     columns repeated): W % 8 != 0 and H % 16 != 0."""
@@ -869,7 +1075,8 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     """One timed ``estimate_pose_gray`` run on the card with the arguments
     ``base`` and ``kw``: ``(edges, row)``, the row with images/s, the summed
     phase split (:data:`PHASES` of the checkout), the threshold kernel's
-    launches and the labeler (a checkout without
+    launches, the PnP kernel's (None in a checkout without it) and the
+    labeler (a checkout without
     ``perception.last_labeler`` has only scipy's); where the timer's
     events carry a ``stage``, also the summed seconds of each stage, their
     overlap (feed + drain - wall) and the seconds in which the worker's
@@ -882,7 +1089,10 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     from vican_torch.utils import PhaseTimer
 
     timer = PhaseTimer(verbose=False, device=torch.device("cuda"))
+    pnp = _pnp_wrapper()
     multi_threshold.launches = 0
+    if pnp is not None:
+        pnp.launches = 0
     t0 = time.perf_counter()
     edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **base, **kw)
     seconds = time.perf_counter() - t0
@@ -890,6 +1100,7 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     split = {p: sum(e["seconds"] for e in timer.events if e["name"] == p) for p in PHASES}
     row = dict(frames=len(names), seconds=seconds, images_per_s=len(names) / seconds,
                phase_s=split, detections=len(edges), kernel_launches=launches,
+               pnp_launches=None if pnp is None else pnp.launches,
                batches=-(-len(names) // base["batch_size"]),
                labeler=getattr(perception, "last_labeler", "scipy"))
     stages: dict = {}
@@ -907,11 +1118,28 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     return edges, row
 
 
+def _pnp_wrapper():
+    """The PnP kernel's wrapper, ``vican_torch.ops.pnp.pnp_block``, or None
+    in an older checkout that solves PnP op by op."""
+    from vican_torch.ops import pnp
+
+    return getattr(pnp, "pnp_block", None)
+
+
+def _pnp_faults(tag: str, run: dict) -> list:
+    """A run whose PnP did not launch the kernel once per batch (a checkout
+    without the kernel has nothing to check)."""
+    if run["pnp_launches"] is None or run["pnp_launches"] == run["batches"]:
+        return []
+    return [f"{tag}: {run['pnp_launches']} PnP launches for {run['batches']} batches"]
+
+
 def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
     """Drive perception in the default mode over the scene on the card,
     check it against the CPU, against ground truth and through calibration.
-    Returns the threshold phase's row with the kernel's launches in the
-    card run, and ``(frames, names, frame_cams, edges)`` of that run."""
+    Returns the threshold phase's row with the threshold and PnP kernels'
+    launches in the card run, and ``(frames, names, frame_cams, edges)``
+    of that run."""
     import torch
 
     from vican_torch import bipgo, perception
@@ -934,6 +1162,9 @@ def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
          upload_mb_per_batch=PERCEPTION_KW["batch_size"] * host[0].nbytes / 1e6, **run)
     if launches != n_batches:
         raise AssertionError(f"perception: {launches} threshold launches for {n_batches} batches")
+    faults = _pnp_faults("perception", run)
+    if faults:
+        raise AssertionError(faults)
     if hasattr(perception, "last_labeler") and run["labeler"] != "c":
         raise AssertionError(f"perception: labeled by {run['labeler']}, not the C labeler")
     if len(edges) < 10 * SCENE_FRAMES:
@@ -997,6 +1228,7 @@ def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
         raise AssertionError(f"calibration: {len(found)} cameras, mean errors "
                              f"{np.mean(r_err)} deg, {np.mean(t_err)} m")
     row["launches"] = launches
+    row["pnp_launches"] = run["pnp_launches"]
     return row, (host, names, frame_cams, edges)
 
 
@@ -1044,6 +1276,8 @@ def perception_modes(device_run) -> None:
               if r["kernel_launches"] != want]
     faults += [f"{m}: labeled by {r['labeler']}" for m, r in (("host", host), ("roi", roi))
                if r["labeler"] != "c"]
+    for m, r in (("host", host), ("device", again), ("roi", roi), ("auto", auto)):
+        faults += _pnp_faults(m, r)
     for name, d in diffs.items():
         if run_to_run["identical"] and not d["identical"]:
             faults.append(f"{name}: {d} (two default runs are identical)")
@@ -1135,11 +1369,19 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
     t0 = time.perf_counter()
     summary = _trace_summary(prof, "pipelined P", "threshold")
     ranges: dict = {}
-    for e in prof.events():
+    events = prof.events()
+    for e in events:
         if e.device_type == DeviceType.CPU and e.name in ("PnP", "detect program",
                                                           "host candidates"):
             ranges.setdefault(e.name, []).append(e)
     batches = -(-len(names) // PERCEPTION_KW["batch_size"])
+    # the hand kernels launch through ctypes, outside any torch operator, so
+    # the trace links none of them to a range: count them on the device's
+    # timeline (the PnP kernel is launched in the PnP range alone)
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    hand = {n: sum(1 for e in events if e.device_type == DeviceType.CUDA
+                   and e.name not in host_names and n in e.name) / batches
+            for n in ("pnp_block_kernel", "threshold_band_kernel")}
     span = lambda e: (e.time_range.start * 1e-6, e.time_range.end * 1e-6)
     # the labeler's ranges on the worker; the candidates' gates run on the
     # calling thread, between its PnP ranges
@@ -1155,6 +1397,7 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
         ranges={n: len(v) for n, v in ranges.items()},
         launches_per_batch={n: sum(_kernels_under(e) for e in v) / batches
                             for n, v in ranges.items() if n != "host candidates"},
+        hand_kernels_per_batch=hand,
         overlap_candidates_pnp_trace_s=(
             _overlap([span(e) for e in ranges["host candidates"]],
                      [span(e) for e in ranges["PnP"]])
@@ -1197,6 +1440,7 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
         if run["kernel_launches"] != run["batches"] or run["labeler"] != "c":
             faults.append(f"depth {run['depth']}: {run['kernel_launches']} launches for "
                           f"{run['batches']} batches, labeler {run['labeler']}")
+        faults += _pnp_faults(f"depth {run['depth']}", run)
     emit("pipeline", runs=runs)
 
     try:
@@ -1219,21 +1463,34 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
                     raise AssertionError(f"pipeline_files: could not write {path}")
                 files.append(path)
             write_s = time.perf_counter() - t0
+            pnp = _pnp_wrapper()
+            if pnp is not None:
+                pnp.launches = 0
             t0 = time.perf_counter()
             via_files = estimate_pose_mp(files, frame_cams, brightness=0, contrast=0,
                                          marker_ids=None, **PERCEPTION_KW)
             files_s = time.perf_counter() - t0
+            files_run = dict(pnp_launches=None if pnp is None else pnp.launches,
+                             batches=-(-len(files) // PERCEPTION_KW["batch_size"]))
             gray = load_images(files, grayscale=True)
             via_gray = estimate_pose_gray(gray, files, frame_cams, **PERCEPTION_KW)
         diff = _edge_diff(via_gray, via_files)
         emit("pipeline_files", ran=True, frames=len(files), write_s=write_s,
              seconds=files_s, images_per_s=len(files) / files_s, detections=len(via_files),
-             vs_gray=diff)
+             vs_gray=diff, **files_run)
         if not diff["identical"] or len(via_files) < 10 * SCENE_FRAMES:
             faults.append(f"files: {len(via_files)} detections, {diff}")
+        faults += _pnp_faults("files", files_run)
     if faults:
         raise AssertionError(f"pipeline: {faults}")
-    emit("pipeline_trace", **pipeline_trace(frames, names, frame_cams))
+    trace = pipeline_trace(frames, names, frame_cams)
+    emit("pipeline_trace", **trace)
+    # one PnP kernel a batch and the few torch operators' kernels around
+    # it, where ~1e4 launches ran before the kernel
+    pnp_per_batch = (trace["launches_per_batch"].get("PnP", 0)
+                     + trace["hand_kernels_per_batch"]["pnp_block_kernel"])
+    if _pnp_wrapper() is not None and not pnp_per_batch <= 8:
+        raise AssertionError(f"pipeline_trace: {pnp_per_batch} PnP launches a batch")
 
 
 PURE_FRAMES = 64  # P's first two batches
@@ -1272,7 +1529,7 @@ def save_pure_frames(device_run, path: str) -> None:
                         pure_keys=keys(pure), pure_corners=np.stack([v["corners"] for v in pure.values()]))
 
 
-def pure_phase(device_run) -> int:
+def pure_phase(device_run) -> tuple[int, int]:
     """The ``pure`` mode on the scene's first :data:`PURE_FRAMES` frames:
     the threshold kernel once per batch, then the components, candidates
     and re-fit on the card.  Against the ``device`` run on those frames it
@@ -1281,7 +1538,8 @@ def pure_phase(device_run) -> int:
     gap within 2e-3 px, twice the card-vs-CPU bar, of
     :data:`JAX_PURE_VS_DEVICE_PX`), and its first 8 frames on the CPU must
     give the card's keys with corners within 1e-3 px.  Prints images/s, the
-    phase split and the peak memory.  Returns the kernel's launches."""
+    phase split and the peak memory.  Returns the threshold and PnP
+    kernels' launches."""
     import torch
 
     frames, names, frame_cams, device_edges = device_run
@@ -1307,6 +1565,7 @@ def pure_phase(device_run) -> int:
     faults = []
     if run["kernel_launches"] != run["batches"]:
         faults.append(f"{run['kernel_launches']} threshold launches for {run['batches']} batches")
+    faults += _pnp_faults("pure", run)
     if len(edges) < 10 * (n // 8):
         faults.append(f"only {len(edges)} detections")
     pure_only, device_only = set(edges) - set(device_first), set(device_first) - set(edges)
@@ -1318,7 +1577,7 @@ def pure_phase(device_run) -> int:
         faults.append(f"against the CPU: keys {set(cpu) ^ set(card8)}, corners {d_cpu} px")
     if faults:
         raise AssertionError(f"pure: {faults}")
-    return run["kernel_launches"]
+    return run["kernel_launches"], run["pnp_launches"]
 
 
 def _perception_run_cpu(frames, names, frame_cams, **kw):
@@ -1408,11 +1667,57 @@ def mesh_child() -> None:
         out["cell_A"][np.dtype(dtype).name] = dict(
             gap=_pose_gap({c: single[c] for c in packed.cam_ids}, sharded), seconds=seconds,
             cg_residual=res)
+    del prob
+    out["perception"] = mesh_perception(mesh)
     dist.destroy_process_group()
     print(json.dumps(out), flush=True)
 
 
-def mesh_phase() -> int:
+MESH_PERCEPTION_STEPS = 8  # P's scene over 8 timesteps: 64 frames, 2 batches
+
+
+def mesh_perception(mesh) -> dict:
+    """``cam.estimate_pose_mp(mesh=mesh)`` over the first
+    :data:`MESH_PERCEPTION_STEPS` timesteps of P's scene written as JPEG
+    files, against ``mesh=None``: each rank runs its share of every batch,
+    PnP on the kernel once per batch.  Needs cv2 for the files (the card
+    machine has it); without it the row says so and nothing is checked."""
+    import tempfile
+
+    import torch
+
+    try:
+        import cv2
+    except ImportError:
+        return dict(ran=False, reason="cv2 does not import: the file path did not run")
+    from vican_torch.cam import estimate_pose_mp
+
+    frames, names, frame_cams = perception_scene(torch.device("cuda"),
+                                                 MESH_PERCEPTION_STEPS)[3:]
+    host = frames.cpu().numpy()
+    del frames
+    pnp = _pnp_wrapper()
+    kw = dict(brightness=0, contrast=0, marker_ids=None, **PERCEPTION_KW)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for img, name in zip(host, names):
+            path = os.path.join(tmp, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            if not cv2.imwrite(path, img):
+                raise AssertionError(f"mesh: could not write {path}")
+            files.append(path)
+        pnp.launches = 0
+        t0 = time.perf_counter()
+        sharded = estimate_pose_mp(files, frame_cams, mesh=mesh, **kw)
+        seconds = time.perf_counter() - t0
+        launches = pnp.launches
+        single = estimate_pose_mp(files, frame_cams, **kw)
+    return dict(ran=True, frames=len(names), seconds=seconds, detections=len(sharded),
+                batches=-(-len(names) // PERCEPTION_KW["batch_size"]), pnp_launches=launches,
+                vs_single=_edge_diff(single, sharded))
+
+
+def mesh_phase() -> tuple[int, int]:
     """Phase ``mesh``: :func:`mesh_child` in a process of its own, under its
     own timeout, so the process group ends with it.  Fails when a float64
     gap passes :data:`MESH_ROT_TOL_DEG` / :data:`MESH_TRANS_TOL_M` or the
@@ -1420,8 +1725,10 @@ def mesh_phase() -> int:
     float64 solves: the float32 large-graph route moves by about as much
     between two runs without a mesh (its run-to-run gap is printed beside
     the mesh's; the JAX package gates its mesh parity in float64 for the
-    same reason, __graft_entry__.py:104-112).  Returns the sharded float32
-    run's launches."""
+    same reason, __graft_entry__.py:104-112).  Perception with ``mesh=``
+    (:func:`mesh_perception`) must give ``mesh=None``'s edges, identical,
+    with one PnP launch a batch.  Returns the sharded float32 run's
+    ``pwr_apply`` launches and the perception run's PnP launches."""
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
@@ -1440,11 +1747,16 @@ def mesh_phase() -> int:
     launches = out["cell_C"]["pwr_launches"]["mesh"]
     if launches <= 0:
         faults.append("the sharded route never launched pwr_apply")
+    per = out["perception"]
+    if per["ran"]:
+        faults += _pnp_faults("perception", per)
+        if not per["vs_single"]["identical"] or per["detections"] < 10 * MESH_PERCEPTION_STEPS:
+            faults.append(f"perception: {per['detections']} detections, {per['vs_single']}")
     if (out["backend"], out["world"]) != ("nccl", 1):
         faults.append(f"backend {out['backend']}, world {out['world']}")
     if faults:
         raise AssertionError(f"mesh: {faults}")
-    return launches
+    return launches, per.get("pnp_launches")
 
 
 def _tutorial_capture(cams: dict, traj: dict, markers: dict, dev):
@@ -1480,7 +1792,7 @@ def _tutorial_capture(cams: dict, traj: dict, markers: dict, dev):
     return gray, names, frame_cams, render_s, preprocess_s
 
 
-def tutorial_phase(dev) -> int:
+def tutorial_phase(dev) -> tuple[int, int]:
     """Phase T: examples/tutorial.py's flow on the card at half the
     reference captures' scale, with its hyperparameters.  Both captures
     are rendered on the card; the cube is calibrated from its capture (float64), the
@@ -1488,9 +1800,10 @@ def tutorial_phase(dev) -> int:
     result is evaluated against ground truth (cell 9).  Fails unless all 24
     markers calibrate, the cameras come within 1 degree and 10 cm on
     average (tests/test_tutorial.py's bars), the threshold kernel launched
-    once per batch, the first 8 room frames on the CPU give the same
-    detections, and the room's edge dict survives ``save_edges`` /
-    ``load_edges`` unchanged.  Returns T's launches of the kernel."""
+    once per batch and the PnP kernel once per batch, the first 8 room
+    frames on the CPU give the same detections, and the room's edge dict
+    survives ``save_edges`` / ``load_edges`` unchanged.  Returns T's
+    launches of the threshold kernel and of the PnP kernel."""
     import tempfile
 
     import torch
@@ -1562,6 +1875,7 @@ def tutorial_phase(dev) -> int:
     emit("tutorial_network", seconds=network_s, edges=len(edges),
          cameras=len(report.valid_cam_ids), summary=summary, report=str(report).splitlines())
     launches = cube_run["kernel_launches"] + room_run["kernel_launches"]
+    pnp_launches = cube_run["pnp_launches"] + room_run["pnp_launches"]
     peak = torch.cuda.max_memory_allocated()
     batches = cube_run["batches"] + room_run["batches"]
 
@@ -1582,12 +1896,13 @@ def tutorial_phase(dev) -> int:
         and back[k]["reprojected_err"] == v["reprojected_err"]
         and back[k]["im_filename"] == v["im_filename"] for k, v in cam_marker_edges.items())
     emit("tutorial", seconds=time.perf_counter() - t_start, kernel_launches=launches,
-         batches=batches, max_memory_allocated=peak, cpu_frames=8,
+         pnp_launches=pnp_launches, batches=batches, max_memory_allocated=peak, cpu_frames=8,
          detections_cpu=len(cpu), detections_card=len(first), same_keys=set(cpu) == set(first),
          max_corner_diff_px=d_corner, save_load_identical=round_trip)
     faults = []
     if launches < batches:
         faults.append(f"{launches} threshold launches for {batches} batches")
+    faults += _pnp_faults("T", dict(pnp_launches=pnp_launches, batches=batches))
     if not (summary["SO3_deg"]["avg"] < 1.0 and summary["E3_cm"]["avg"] < 10.0):
         faults.append(f"camera errors {summary['SO3_deg']['avg']} deg, "
                       f"{summary['E3_cm']['avg']} cm on average")
@@ -1599,7 +1914,7 @@ def tutorial_phase(dev) -> int:
         faults.append("save_edges / load_edges changed the edge dict")
     if faults:
         raise AssertionError(f"tutorial: {faults}")
-    return launches
+    return launches, pnp_launches
 
 
 def _build_native(only_present: bool = False) -> list:
@@ -1645,13 +1960,19 @@ def main() -> None:
     emit("device", kind=name, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, host_packages=host_packages)
 
+    # the perception modes launch the threshold and PnP kernels (a checkout
+    # without pnp.cu builds the threshold kernel alone); --mesh's child
+    # runs the solver and perception
     partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial", "--pure",
-                                          "--pipeline"))
+                                          "--pipeline", "--pnp"))
+    perception_kernels = [k for k in ("threshold", "pnp") if k in _kernels.SOURCES]
     t0 = time.perf_counter()
-    logs = _kernels.build(["threshold"] if partial else ["pwr"] if "--mesh" in sys.argv
-                          else None)
+    logs = _kernels.build(["threshold"] if "--threshold" in sys.argv
+                          else perception_kernels if partial
+                          else ["pwr", *perception_kernels] if "--mesh" in sys.argv else None)
     build_s = time.perf_counter() - t0
     ptxas = logs.get("threshold", {}).get("ptxas", "")
+    pnp_ptxas = logs.get("pnp", {}).get("ptxas", "")
     if "--threshold" in sys.argv:
         emit("build", seconds=build_s,
              kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
@@ -1668,6 +1989,10 @@ def main() -> None:
          kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
     if "--tutorial" in sys.argv:
         tutorial_phase(dev)
+        return
+    if "--pnp" in sys.argv:
+        frames, names, frame_cams = perception_scene(dev, 32 // 8)[3:]
+        pnp_phase(dev, capture_pnp_batch(frames.cpu().numpy(), names, frame_cams), pnp_ptxas)
         return
     if "--mesh" in sys.argv:
         mesh_phase()
@@ -1767,14 +2092,15 @@ def main() -> None:
 
     d = config_d_phase(dev)
     torch.cuda.empty_cache()
-    launches_mesh = mesh_phase()
+    launches_mesh, pnp_mesh = mesh_phase()
 
     th, device_run = perception_phases(dev, ptxas)
+    pnp = pnp_phase(dev, capture_pnp_batch(*device_run[:3]), pnp_ptxas)
     perception_modes(device_run)
     pipeline_phase(*device_run)
-    launches_pure = pure_phase(device_run)
+    launches_pure, pnp_pure = pure_phase(device_run)
     del device_run
-    launches_t = tutorial_phase(dev)
+    launches_t, pnp_t = tutorial_phase(dev)
 
     w10 = rows["B", 10]
     kernels = [{
@@ -1809,6 +2135,14 @@ def main() -> None:
         **{k: mv_rows["streaming w=10"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "probe": {k: mv_rows["probe"][k] for k in ("ms", "library_ms", "bound_ms", "shape")},
+    }, {
+        "name": "pnp_block", "route": "cuda", "source": "vican_torch/csrc/pnp.cu",
+        "replaces": "vican_tpu/perception.py:883",
+        "launches": th["pnp_launches"], "launches_pure": pnp_pure, "launches_T": pnp_t,
+        "launches_mesh": pnp_mesh, "max_abs_err": pnp["max_abs_err"],
+        **{k: pnp[k] for k in ("ms", "kernel_ms", "launch_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "shape", "valid_slots", "method",
+                               "design")},
     }]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)

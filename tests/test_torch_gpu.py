@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PNP_MARKER, PNP_MEDIAN_TOL, PNP_TOL, _pnp_gaps, pnp_slots
 from vican_torch import bipgo, render
 from vican_torch.cam import Camera
 from vican_torch.geometry import distance_SO3
+from vican_torch.ops.pnp import pnp_block, pnp_block_plain
 from vican_torch.ops.threshold import multi_threshold, multi_threshold_plain
 from vican_torch.perception import estimate_pose_gray
 from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
@@ -556,3 +558,27 @@ def test_mesh_large_route_over_nccl_matches_single(cuda, tmp_path):
     assert (out["backend"], out["world"]) == ("nccl", 1)
     assert out["float64"]["rot"] < 1e-9 and out["float64"]["t"] < 1e-3, out
     assert out["float32"]["launches"] > 0 and out["float64"]["launches"] == 0, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["ippe_square", "iterative"])
+@pytest.mark.parametrize("distorted", [False, True])
+def test_pnp_kernel_matches_plain(cuda, method, distorted):
+    """The PnP kernel (csrc/pnp.cu) against ``pnp_block_plain`` on the card
+    at P's shape, 32 cameras x 24 slots of chip_smoke.py's seeded scene:
+    ``ok``, corners and ids identical, slots that are not valid zero past
+    their id, poses and errors within chip_smoke.py's float64 bars (where
+    their reason is given); one launch."""
+    args = pnp_slots(32, 24, 3 + distorted, distorted, cuda)
+    pnp_block.launches = 0
+    out = pnp_block(*args, PNP_MARKER, 20, method)
+    torch.cuda.synchronize()
+    assert pnp_block.launches == 1
+    ref = pnp_block_plain(*args, PNP_MARKER, 20, method)
+    gaps = _pnp_gaps(out, ref)
+    assert gaps["same_ok"] and gaps["same_head"] and gaps["same_zeros"], gaps
+    assert gaps["ok"] > 400, gaps
+    assert max(gaps["R"], gaps["t"], gaps["err"]) <= PNP_TOL, gaps
+    assert max(gaps["R_median"], gaps["t_median"]) <= PNP_MEDIAN_TOL, gaps
+    not_valid = ~args[2].cpu()
+    assert (out.cpu()[not_valid, 9:] == 0).all()

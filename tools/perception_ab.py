@@ -5,7 +5,8 @@ port, say).
     python3 tools/perception_ab.py CHECKOUT TAG
 
 imports ``chip_smoke.py`` from ``CHECKOUT`` (copy the current one into an
-older checkout first), builds the threshold kernel and the C modules,
+older checkout first), builds the threshold and PnP kernels (those the
+checkout has) and the C modules,
 renders the smoke's 384-frame perception scene on the card, runs
 ``estimate_pose_gray`` once to warm up and three more times (each through
 ``chip_smoke._perception_run``), then writes the frames as JPEGs and runs
@@ -32,7 +33,8 @@ def main() -> None:
     from vican_torch import _kernels
     from vican_torch.cam import estimate_pose_mp
 
-    _kernels.build(["threshold"])
+    # the checkout's perception kernels (an older one has no pnp.cu)
+    _kernels.build([k for k in ("threshold", "pnp") if k in _kernels.SOURCES])
     cs._build_native()
     scene = cs.perception_scene(torch.device("cuda"))
     host, names, frame_cams = scene[3].cpu().numpy(), scene[4], scene[5]

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # source -> {C function: argtypes}; the CUDA stream is appended to each call
 SOURCES = {
     "pwr": {"pwr_apply_bf16": [*[_P] * 8, *[_I] * 10, _P],
@@ -40,6 +40,8 @@ SOURCES = {
     "threshold": {"threshold_pack_u8": [_P, _P, *[_I] * 14, _F, *[_I] * 3, _P],
                   "threshold_constant": [_I], "threshold_attribute": [_I, _I]},
     "mv": {"thin_mv_bf16": [*[_P] * 5, *[_I] * 9, _P], "thin_mv_occupancy": [_I]},
+    # corners, ids, valid, Ks, dists, out; slots, D, lm_iters, method; marker_size
+    "pnp": {"pnp_block_f64": [*[_P] * 6, *[_I] * 4, _D, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -118,9 +120,12 @@ def _load(name: str) -> ctypes.CDLL:
 def launch(name: str, fn: str, *args) -> None:
     """Call C function ``fn`` of source ``name`` on the current CUDA stream.
 
-    Tensors pass as device pointers, floats as C floats, other scalars as C
-    ints; the tensors' device is the launch device.  Raises if the launch
-    reports a CUDA error.
+    Tensors pass as device pointers, floats as the C float or C double that
+    the function's argtypes in :data:`SOURCES` name (ctypes converts them:
+    a ``c_float`` would round ``marker_size`` = 0.138 by ~1e-9 relative,
+    so pnp.cu's is a ``c_double``), other scalars as C ints; the tensors'
+    device is the launch device.  Raises if the launch reports a CUDA
+    error.
     """
     lib = _load(name)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))

@@ -11,6 +11,10 @@ are ``vmap``-ed; these take a leading batch axis ``N`` and run it at once:
 - :func:`iterative_planar` <- cv.solvePnP(SOLVEPNP_ITERATIVE), planar case
 - :func:`refine_lm`        <- cv.solvePnPRefineLM (forward-mode Jacobian)
 - :func:`reprojection_error_max` <- max per-corner L2 (cam.py:176-179)
+- :func:`pnp_block`        <- perception's PnP block (vican_tpu/perception.py:
+                              883 ``_pnp_block``): every detection slot of a
+                              batch to one packed ``(B*D, 23)`` result; on
+                              the card one CUDA kernel (``csrc/pnp.cu``)
 
 Shapes: corners ``(N, 4, 2)``, ``K (N, 3, 3)``, ``dist (N, 14)`` (zero-padded
 distortion, taux/tauy not modeled).  Degenerate inputs (the all-zero quads
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _kernels
 from .lie import hat, project_so3, rodrigues, so3_log
 
 __all__ = [
@@ -34,7 +39,11 @@ __all__ = [
     "refine_lm",
     "reprojection_error_max",
     "solve_marker_pose",
+    "pnp_block",
+    "pnp_block_plain",
 ]
+
+PNP_METHODS = {"ippe_square": 0, "iterative": 1}  # pnp.cu's method codes
 
 
 def marker_object_points(marker_size, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -279,3 +288,70 @@ def solve_marker_pose(corners_px, K, dist, marker_size, lm_iters: int = 20,
         raise ValueError(f"unknown PnP method: {method!r}")
     R, t = refine_lm(R0, t0, corners_px, K, dist, marker_size, iters=lm_iters)
     return R, t, reprojection_error_max(R, t, corners_px, K, dist, marker_size)
+
+
+def pnp_block_plain(corners, ids, valid, Ks, dists, marker_size, lm_iters: int = 20,
+                    method: str = "ippe_square"):
+    """The plain version of :func:`pnp_block`: :func:`solve_marker_pose` on
+    the valid slots only (a ``nonzero`` picks them, a host sync on the
+    card), scattered into the packed buffer."""
+    N = corners.shape[0]
+    D = N // Ks.shape[0]
+    out = torch.zeros((N, 23), dtype=torch.float64, device=corners.device)
+    out[:, 0:8] = corners.reshape(N, 8)
+    out[:, 8] = ids.to(torch.float64)
+    sel = valid.nonzero()[:, 0]
+    if sel.numel():
+        im_of = sel // D
+        R, t, err = solve_marker_pose(corners[sel], Ks[im_of], dists[im_of], marker_size,
+                                      lm_iters=lm_iters, method=method)
+        finite = (torch.isfinite(err) & torch.isfinite(R).all(dim=(1, 2))
+                  & torch.isfinite(t).all(dim=1))
+        out[sel, 9] = finite.to(torch.float64)
+        out[sel, 10:19] = R.reshape(-1, 9)
+        out[sel, 19:22] = t
+        out[sel, 22] = err
+    return out
+
+
+def pnp_block(corners, ids, valid, Ks, dists, marker_size, lm_iters: int = 20,
+              method: str = "ippe_square"):
+    """Poses of a batch's detection slots, packed as
+    vican_tpu/perception.py:_pnp_block packs them.
+
+    ``corners (B*D, 4, 2)`` float64 in pixels, ``ids (B*D,)`` int64,
+    ``valid (B*D,)`` bool, ``Ks (B, 3, 3)`` and ``dists (B, 14)`` float64,
+    slot ``i`` seen by camera ``i // D``.  Returns float64 ``(B*D, 23)``:
+    corners (8), id, ok, R (9), t (3), reprojection error (px).  A slot that
+    is not valid keeps its corners and id and is zero elsewhere; ``ok`` is 1
+    where a valid slot's pose and error are finite.
+
+    CPU tensors take :func:`pnp_block_plain`.  CUDA tensors launch the
+    kernel of ``vican_torch/csrc/pnp.cu`` (one thread per slot, float64, no
+    host sync), or raise; each launch adds one to ``pnp_block.launches``.
+    """
+    if method not in PNP_METHODS:
+        raise ValueError(f"unknown PnP method: {method!r}")
+    if not corners.is_cuda:
+        return pnp_block_plain(corners, ids, valid, Ks, dists, marker_size, lm_iters, method)
+    N, B = corners.shape[0], Ks.shape[0]
+    want = {"corners": (corners, torch.float64, (N, 4, 2)), "ids": (ids, torch.int64, (N,)),
+            "valid": (valid, torch.bool, (N,)), "Ks": (Ks, torch.float64, (B, 3, 3)),
+            "dists": (dists, torch.float64, (B, 14))}
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"pnp_block: {name} must be a contiguous {dtype} {shape} tensor, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        if x.device != corners.device:
+            raise ValueError(f"pnp_block: {name} is on {x.device}, corners on {corners.device}")
+    if B == 0 or N % B:
+        raise ValueError(f"pnp_block: {N} slots do not split over {B} cameras")
+    out = torch.empty((N, 23), dtype=torch.float64, device=corners.device)
+    if N:
+        _kernels.launch("pnp", "pnp_block_f64", corners, ids, valid, Ks, dists, out, N, N // B,
+                        int(lm_iters), PNP_METHODS[method], float(marker_size))
+        pnp_block.launches += 1
+    return out
+
+
+pnp_block.launches = 0

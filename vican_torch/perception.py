@@ -663,27 +663,15 @@ def _threshold_pack_numpy(g: np.ndarray, wins, C) -> np.ndarray:
 def _pnp_block(det, Ks, dists, marker_size, lm_iters, pnp_method):
     """Detections -> one packed float64 ``(B*D, 23)`` result: corners (8),
     id, ok, R (9), t (3), reprojection error, as
-    vican_tpu/perception.py:_pnp_block packs them.  Poses are solved only
-    for the valid slots; ``ok`` also requires a finite pose."""
-    from .ops.pnp import solve_marker_pose
+    vican_tpu/perception.py:_pnp_block packs them
+    (:func:`vican_torch.ops.pnp.pnp_block`: one kernel launch on the card,
+    no host sync)."""
+    from .ops.pnp import pnp_block
 
     B, D = det.ids.shape
-    corners = det.corners.reshape(B * D, 4, 2)
-    out = torch.zeros((B * D, 23), dtype=torch.float64, device=corners.device)
-    out[:, 0:8] = corners.reshape(B * D, 8)
-    out[:, 8] = det.ids.reshape(B * D).to(torch.float64)
-    sel = det.valid.reshape(B * D).nonzero()[:, 0]
-    if sel.numel():
-        im_of = sel // D
-        R, t, err = solve_marker_pose(corners[sel], Ks[im_of], dists[im_of], marker_size,
-                                      lm_iters=lm_iters, method=pnp_method)
-        finite = (torch.isfinite(err) & torch.isfinite(R).all(dim=(1, 2))
-                  & torch.isfinite(t).all(dim=1))
-        out[sel, 9] = finite.to(torch.float64)
-        out[sel, 10:19] = R.reshape(-1, 9)
-        out[sel, 19:22] = t
-        out[sel, 22] = err
-    return out
+    return pnp_block(det.corners.reshape(B * D, 4, 2).contiguous(),
+                     det.ids.reshape(B * D).contiguous(), det.valid.reshape(B * D).contiguous(),
+                     Ks.contiguous(), dists.contiguous(), marker_size, lm_iters, pnp_method)
 
 
 def _unpack_pnp_result(out: np.ndarray):
