@@ -1000,11 +1000,14 @@ def pnp_phase(dev, p_batch, ptxas: str = "") -> dict:
     distortion, then P's first batch of detections (``p_batch``, from
     :func:`capture_pnp_batch`) in both methods.  ``ok``, corners and ids
     must be identical, the pose and error gaps within :data:`PNP_TOL` and
-    their medians within :data:`PNP_MEDIAN_TOL`.  At P's shape, in P's
-    method, the kernel's device time (``_device_ms``), back-to-back rate
-    and launch time beside the plain version's and the bound; the other
-    method's device time; the kernel's registers and stack from its
-    ``-Xptxas -v`` report."""
+    their medians within :data:`PNP_MEDIAN_TOL`.  At P's shape, in both
+    methods, the kernel's device time (``_device_ms``), back-to-back rate
+    and launch time, beside the plain version's time and the bound; its
+    device time on a seeded case and on P's batch with one valid slot (one
+    slot's chain: the latency floor); its registers, stack and spills from
+    the ``-Xptxas -v`` report.  The one-slot times are taken with no LM
+    trip and with P's, so their difference over the trip count is one LM
+    trip's chain."""
     import torch
 
     from vican_torch.ops.pnp import pnp_block, pnp_block_plain
@@ -1029,14 +1032,19 @@ def pnp_phase(dev, p_batch, ptxas: str = "") -> dict:
             faults.append(f"{tag}: {gaps}")
         del out
 
-    def run(m=method):
-        return pnp_block(corners, ids, valid, Ks, dists, marker_size, lm_iters, m)
-
-    other = "iterative" if method == "ippe_square" else "ippe_square"
-    kernel_ms = _device_ms(run)
-    ms = _rate_ms(run)
-    launch_ms = _median_ms(run)
-    other_ms = _device_ms(lambda: run(other))
+    times = {}
+    for m in (method, "iterative" if method == "ippe_square" else "ippe_square"):
+        def run(m=m):
+            return pnp_block(corners, ids, valid, Ks, dists, marker_size, lm_iters, m)
+        times[m] = dict(kernel_ms=_device_ms(run), ms=_rate_ms(run), launch_ms=_median_ms(run))
+    seeded_args, size, iters, m = cases[f"seeded {method} distorted"]
+    seeded_ms = _device_ms(lambda: pnp_block(*seeded_args, size, iters, m))
+    # one valid slot, with no LM trip and with P's: its setup and its trips
+    one = torch.zeros_like(valid)
+    one[int(valid.nonzero()[0, 0])] = True
+    one_slot = {f"lm_iters_{it}": _device_ms(
+        lambda it=it: pnp_block(corners, ids, one, Ks, dists, marker_size, it, method))
+        for it in (0, lm_iters)}
     plain_ms = _median_ms(lambda: pnp_block_plain(corners, ids, valid, Ks, dists, marker_size,
                                                   lm_iters, method), reps=5)
     n_valid = int(valid.sum())
@@ -1044,17 +1052,21 @@ def pnp_phase(dev, p_batch, ptxas: str = "") -> dict:
     nbytes = N * (8 * 8 + 8 + 1 + 23 * 8) + B * (9 + 14) * 8
     ops = n_valid * pnp_flops(method, lm_iters)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP64_FLOPS
-    resources = {k: v for k, v in _ptxas_functions(ptxas).items()
-                 if "pnp_block_kernel" in k or "refine_lm" in k}
+    resources = {k: v for k, v in _ptxas_functions(ptxas).items() if "pnp_block_kernel" in k}
     row = dict(shape=[N, 4, 2], cameras=B, valid_slots=n_valid, method=method,
-               lm_iters=lm_iters, checks=checks, kernel_ms=kernel_ms, ms=ms,
-               launch_ms=launch_ms, plain_ms=plain_ms, **{f"kernel_ms_{other}": other_ms},
+               lm_iters=lm_iters, checks=checks, **times[method],
+               **{f"{k}_{m}": v for m, t in times.items() if m != method for k, v in t.items()},
+               seeded_kernel_ms=seeded_ms, seeded_slots=int(seeded_args[0].shape[0]),
+               seeded_valid=int(seeded_args[2].sum()), one_slot_kernel_ms=one_slot,
+               plain_ms=plain_ms,
                bytes=nbytes, ops=ops, flops_per_slot=pnp_flops(method, lm_iters),
                bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3, bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                library_ms=None, library="none: no single PyTorch call computes it",
                max_abs_err=max(max(c["R"], c["t"], c["err"]) for c in checks),
-               design="one thread per slot, float64, 6-tangent dual numbers, warp blocks",
+               design="a warp a slot, float64: lanes across the Jacobian's 6 tangents x 4 "
+                      "corners on 1-tangent dual numbers, J^T J entries a lane in row order, "
+                      "the 6x6 LU on every lane, reciprocals beside the chain; 4 slots a block",
                ptxas=resources)
     emit("pnp_kernel", name="pnp_block", **row)
     if faults:
@@ -2142,7 +2154,7 @@ def main() -> None:
         "launches_mesh": pnp_mesh, "max_abs_err": pnp["max_abs_err"],
         **{k: pnp[k] for k in ("ms", "kernel_ms", "launch_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "shape", "valid_slots", "method",
-                               "design")},
+                               "design", "one_slot_kernel_ms")},
     }]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)

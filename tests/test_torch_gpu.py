@@ -23,6 +23,7 @@ from vican_torch.solver.mv import aligned_bf16, thin_mv, thin_mv_plain
 from vican_torch.solver.pwr import filter_operator, pwr_apply, pwr_apply_plain, pwr_plan
 from vican_torch.solver.tiles import single_plan
 from vican_torch.synthetic import make_problem_arrays
+from vican_torch.utils import PhaseTimer
 
 
 @pytest.fixture
@@ -582,3 +583,67 @@ def test_pnp_kernel_matches_plain(cuda, method, distorted):
     assert max(gaps["R_median"], gaps["t_median"]) <= PNP_MEDIAN_TOL, gaps
     not_valid = ~args[2].cpu()
     assert (out.cpu()[not_valid, 9:] == 0).all()
+
+
+def _assert_pnp_edge(out, ref):
+    """``ok``, corners and ids identical, zeros past the id where the plain
+    version has them, the ok slots within the float64 bars, and every
+    valid slot that is not ok non-finite in the kernel too."""
+    o, r = out.cpu().numpy(), ref.cpu().numpy()
+    assert np.array_equal(o[:, :10], r[:, :10])
+    zero = (r[:, 9:] == 0).all(1)
+    assert (o[zero, 9:] == 0).all()
+    ok = r[:, 9] > 0.5
+    if ok.any():
+        gaps = _pnp_gaps(out, ref)
+        assert max(gaps["R"], gaps["t"], gaps["err"]) <= PNP_TOL, gaps
+        assert max(gaps["R_median"], gaps["t_median"]) <= PNP_MEDIAN_TOL, gaps
+    failed = ~ok & ~zero
+    assert not np.isfinite(o[failed, 10:]).all(1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "none_valid", "one_valid", "zero_quads"])
+@pytest.mark.parametrize("method", ["ippe_square", "iterative"])
+def test_pnp_warp_design_edges_match_plain(cuda, case, method):
+    """The warp design's edges against ``pnp_block_plain``, one launch each:
+    21 slots (not a multiple of a block's 4), a batch with no valid slot
+    (heads and zeros only), a single valid slot, and valid slots whose
+    quads are all zero (non-finite, ``ok`` = 0, as the plain version
+    gives)."""
+    corners, ids, valid, Ks, dists = pnp_slots(*((3, 7) if case == "ragged" else (4, 24)), 11,
+                                               True, cuda)
+    if case == "none_valid":
+        valid = torch.zeros_like(valid)
+    elif case == "one_valid":
+        valid = torch.zeros_like(valid)
+        valid[int((corners != 0).flatten(1).any(1).nonzero()[-1, 0])] = True
+    elif case == "zero_quads":
+        corners[::5] = 0.0
+        valid[::5] = True
+    pnp_block.launches = 0
+    out = pnp_block(corners, ids, valid, Ks, dists, PNP_MARKER, 20, method)
+    torch.cuda.synchronize()
+    assert pnp_block.launches == 1
+    ref = pnp_block_plain(corners, ids, valid, Ks, dists, PNP_MARKER, 20, method)
+    _assert_pnp_edge(out, ref)
+    n_ok = int(out[:, 9].sum())
+    assert n_ok == {"none_valid": 0, "one_valid": 1}.get(case, n_ok)
+    if case == "zero_quads":
+        assert (out[::5, 9] == 0).all()
+
+
+@pytest.mark.gpu
+def test_phase_sync_waits_for_the_card(cuda):
+    """``PhaseTimer.phase(sync=t)`` on a timer with no device waits for the
+    work queued on ``t``'s stream: a ~0.1 s device sleep lands inside the
+    phase."""
+    timer = PhaseTimer(verbose=False)
+    x = torch.ones(4, device=cuda)
+    torch.cuda.synchronize()
+    with timer.phase("sleep", sync=x):
+        torch.cuda._sleep(200_000_000)
+    with timer.phase("sleep, out", stage="drain") as out:
+        torch.cuda._sleep(200_000_000)
+        out["sync"] = {"x": [x]}
+    assert all(e["seconds"] > 0.05 for e in timer.events), timer.events

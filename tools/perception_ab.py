@@ -15,6 +15,15 @@ and a JSON object: the warm-up's and the runs' rows, the file runs'
 seconds and their detections.  Run the checkouts as separate processes in
 turns (parent, change, change, parent, ...): both packages are named
 ``vican_torch``.  Needs a CUDA card and cv2.
+
+    python3 tools/perception_ab.py CHECKOUT TAG SAVE.npz
+
+also writes the last warm run's edges (keys, corners, poses) to
+``SAVE.npz``;
+
+    python3 tools/perception_ab.py --compare A.npz B.npz
+
+prints how far two saved edge sets are apart (no card needed).
 """
 import json
 import os
@@ -23,7 +32,31 @@ import tempfile
 import time
 
 
+def save_edges(path: str, edges: dict) -> None:
+    """The edges' keys (as text), corners and 4x4 poses, in dict order."""
+    import numpy as np
+
+    np.savez(path, keys=np.array([repr(k) for k in edges]),
+             corners=np.stack([np.asarray(e["corners"], np.float64) for e in edges.values()]),
+             poses=np.stack([np.asarray(e["pose"].pose(), np.float64) for e in edges.values()]))
+
+
+def compare(a: str, b: str) -> dict:
+    """Same keys in the same order, and the largest corner and pose-entry
+    gaps of two saved edge sets."""
+    import numpy as np
+
+    x, y = np.load(a), np.load(b)
+    same = x["keys"].shape == y["keys"].shape and bool((x["keys"] == y["keys"]).all())
+    gaps = {k: float(np.abs(x[k] - y[k]).max()) if same else None for k in ("corners", "poses")}
+    return dict(detections=[len(x["keys"]), len(y["keys"])], same_keys=same,
+                max_corner_diff_px=gaps["corners"], max_pose_entry_diff=gaps["poses"])
+
+
 def main() -> None:
+    if sys.argv[1] == "--compare":
+        print(json.dumps(compare(sys.argv[2], sys.argv[3])))
+        return
     checkout, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, checkout)
     import cv2
@@ -42,7 +75,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     out = {"tag": tag}
     _, out["warmup"] = cs._perception_run(host, names, frame_cams)
-    out["runs"] = [cs._perception_run(host, names, frame_cams)[1] for _ in range(3)]
+    out["runs"] = []
+    for _ in range(3):
+        edges, row = cs._perception_run(host, names, frame_cams)
+        out["runs"].append(row)
+    if len(sys.argv) > 3:
+        save_edges(sys.argv[3], edges)
     with tempfile.TemporaryDirectory() as tmp:
         files = []
         for img, name in zip(host, names):

@@ -1,5 +1,5 @@
 // Square-marker PnP over a batch of detection slots, float64, on Hopper
-// (sm_90a): one thread per slot.
+// (sm_90a): one warp per slot.
 //
 // Replaces vican_tpu/ops/pnp.py:334 solve_marker_pose as
 // vican_tpu/perception.py:883 _pnp_block vmaps it over a batch's B*D
@@ -18,7 +18,7 @@
 //   pose whatever it is, and ok = 1 only where R, t and the error are all
 //   finite.
 //
-// Each thread runs the plain version's steps in its order: the 8-trip
+// Each slot runs the plain version's steps in its order: the 8-trip
 // fixed-point undistortion, the 4-point homography (an 8x8 LU with partial
 // pivoting), then either IPPE (method 0: both sign candidates, their
 // normal-equation translations, the behind-camera inf) or the homography
@@ -30,143 +30,86 @@
 // dominant-column cases, LM's accept test, lambda * 0.3 / * 3 and its clamp
 // to [1e-12, 1e12], LU's first largest pivot.  Clamps propagate NaN as
 // torch.clamp does (a NaN compares false), so a degenerate slot ends
-// non-finite, as in the plain version.
-//
-// The LM Jacobian is forward-mode, as jax.jacfwd and the plain version's
-// JVPs compute it: the residual is written once (project), templated on
-// its scalar, and runs on a dual number carrying the six tangents of
-// (rvec, t).  J^T J and J^T r are accumulated row by row, two rows a
-// corner; the 8x6 Jacobian is never stored.
+// non-finite, as in the plain version.  The LM Jacobian is forward-mode,
+// as jax.jacfwd and the plain version's JVPs compute it: the residual is
+// written once (project), templated on its scalar, and runs on dual
+// numbers.
 //
 // What bounds it: operations, in float64: ~7.4e4 a valid slot for IPPE
 // with 20 LM trips, ~1.4e5 for the iterative method (chip_smoke.py's
-// PNP_FLOPS tallies them from this source); a slot that is not valid
-// costs nothing.  The first 32-frame batch of 1280x720 frames of the
-// smoke's perception scene holds 256 valid slots of 768, so ~1.9e7
-// operations: ~0.55 us at the H100's 34 TFLOP/s in float64; its ~0.2 MB of
-// operands take ~0.06 us at 3.35 TB/s.  The kernel is instead bound by one
-// thread's dependent chain of float64 operations (divisions, square roots,
-// sines; 20 LM trips a slot, 40 for the iterative method), since there is
-// one slot a thread and only 768 of them.  One thread per slot keeps every
-// slot's solve in registers (and some local memory: ptxas spills part of
-// the LM's dual numbers) without any exchange between threads; the block
-// is one warp, so the 24 warps of a batch land on 24 SMs and none shares
-// an SM's float64 pipes.  Spreading a slot over a warp (a lane per residual
-// row) is the next design.
+// PNP_FLOPS tallies them); a slot that is not valid costs nothing.  P's
+// first 32-frame batch holds 256 valid slots of 768: ~1.9e7 operations,
+// ~0.55 us at the H100's 34 TFLOP/s; its ~0.2 MB of operands take ~0.06
+// us.  No design reaches that: each slot is a dependent chain (20 LM
+// trips, each a Jacobian, a 6x6 solve and a trial point, full of
+// divisions, square roots and sines), and there are only a few hundred
+// slots, so the kernel's time is one slot's chain.
+//
+// The design shortens that chain.  A block holds SLOTS warps, a warp one
+// slot; a warp whose slot is not valid writes its head and zeros and
+// returns.  In each LM trip lane 6k + j carries tangent j of corner k's two
+// residual rows on a dual number with one tangent (2 doubles; a thread a
+// slot would carry all six, 7 doubles), lanes 24-27 the corners' residuals;
+// each of the 21 + 6 + 1 sums of J^T J, J^T r and r^T r is one lane's, over
+// the 8 rows in the plain version's order (corner 0's u row, its v row,
+// corner 1's, ...) from shuffles; every lane gathers the sums and runs the
+// damped 6x6 LU itself (spreading it a row a lane would add a shuffle round
+// trip to each dependent step of the elimination); the lanes then evaluate
+// their rows at the trial point, whose residual lanes give the trial cost in
+// corner order and, when it is accepted, the next trip's rows: one dual
+// evaluation a trip.  The undistortion runs a corner a lane.  The values are
+// divided; the tangents and the LUs multiply by reciprocals, which run
+// beside the chain instead of on it.  Every lane runs the same code on its
+// own operands (translation tangents included, whose zero rotation tangents
+// a branch would skip only by serializing the warp), so nothing diverges.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int THREADS = 32;
-constexpr int NT = 6;  // tangents: rvec (3), t (3)
-
 // ---------------------------------------------------------------------------
-// A dual number with the six tangents of the LM parameters.
+// A dual number with one tangent of the LM parameters (rvec, t): a lane's.
 
 struct Dual {
-  double v;
-  double d[NT];
+  double v, d;
 };
 
 __device__ __forceinline__ double val(double a) { return a; }
 __device__ __forceinline__ double val(const Dual& a) { return a.v; }
 
 __device__ __forceinline__ Dual operator+(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] + b.d[k];
-  return r;
+  return {a.v + b.v, a.d + b.d};
 }
 __device__ __forceinline__ Dual operator-(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] - b.d[k];
-  return r;
+  return {a.v - b.v, a.d - b.d};
 }
-__device__ __forceinline__ Dual operator-(const Dual& a) {
-  Dual r;
-  r.v = -a.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = -a.d[k];
-  return r;
-}
+__device__ __forceinline__ Dual operator-(const Dual& a) { return {-a.v, -a.d}; }
 __device__ __forceinline__ Dual operator*(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
-  return r;
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
 }
+// A quotient's tangent multiplies by the divisor's reciprocal, which runs
+// beside the value's division: one division on the dependent chain.
 __device__ __forceinline__ Dual operator/(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v / b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
-  return r;
+  const double v = a.v / b.v;
+  return {v, (a.d - v * b.d) * (1.0 / b.v)};
 }
-__device__ __forceinline__ Dual operator+(const Dual& a, double b) {
-  Dual r = a;
-  r.v = a.v + b;
-  return r;
-}
+__device__ __forceinline__ Dual operator+(const Dual& a, double b) { return {a.v + b, a.d}; }
 __device__ __forceinline__ Dual operator+(double a, const Dual& b) { return b + a; }
-__device__ __forceinline__ Dual operator-(const Dual& a, double b) {
-  Dual r = a;
-  r.v = a.v - b;
-  return r;
-}
-__device__ __forceinline__ Dual operator-(double a, const Dual& b) {
-  Dual r;
-  r.v = a - b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = -b.d[k];
-  return r;
-}
-__device__ __forceinline__ Dual operator*(double a, const Dual& b) {
-  Dual r;
-  r.v = a * b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a * b.d[k];
-  return r;
-}
+__device__ __forceinline__ Dual operator-(const Dual& a, double b) { return {a.v - b, a.d}; }
+__device__ __forceinline__ Dual operator-(double a, const Dual& b) { return {a - b.v, -b.d}; }
+__device__ __forceinline__ Dual operator*(double a, const Dual& b) { return {a * b.v, a * b.d}; }
 __device__ __forceinline__ Dual operator*(const Dual& a, double b) { return b * a; }
-__device__ __forceinline__ Dual operator/(const Dual& a, double b) {
-  Dual r;
-  r.v = a.v / b;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] / b;
-  return r;
-}
+__device__ __forceinline__ Dual operator/(const Dual& a, double b) { return {a.v / b, a.d / b}; }
 
 __device__ __forceinline__ double dsqrt(double a) { return sqrt(a); }
 __device__ __forceinline__ double dsin(double a) { return sin(a); }
 __device__ __forceinline__ double dcos(double a) { return cos(a); }
+// ... and a square root's tangent takes rsqrt beside sqrt
 __device__ __forceinline__ Dual dsqrt(const Dual& a) {
-  Dual r;
-  r.v = sqrt(a.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] / (2.0 * r.v);
-  return r;
+  return {sqrt(a.v), a.d * (0.5 * rsqrt(a.v))};
 }
-__device__ __forceinline__ Dual dsin(const Dual& a) {
-  Dual r;
-  r.v = sin(a.v);
-  const double c = cos(a.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = c * a.d[k];
-  return r;
-}
-__device__ __forceinline__ Dual dcos(const Dual& a) {
-  Dual r;
-  r.v = cos(a.v);
-  const double s = -sin(a.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = s * a.d[k];
-  return r;
-}
+__device__ __forceinline__ Dual dsin(const Dual& a) { return {sin(a.v), cos(a.v) * a.d}; }
+__device__ __forceinline__ Dual dcos(const Dual& a) { return {cos(a.v), -sin(a.v) * a.d}; }
 
 // torch.clamp / clamp_min: a NaN compares false and passes through
 __device__ __forceinline__ double clamp_min(double x, double lo) { return x < lo ? lo : x; }
@@ -238,7 +181,9 @@ __device__ __forceinline__ void project(const T R[3][3], const T t[3], const Cam
 // as LAPACK's idamax), a zero pivot left unscaled as LAPACK's getrf leaves
 // it, so a singular system gives inf or NaN in the back substitution.
 // Every index is a compile-time constant after unrolling, so the matrix
-// stays in registers: the row swap is a predicated exchange.
+// stays in registers: the row swap is a predicated exchange.  It multiplies
+// by the pivots' reciprocals instead of dividing: the back substitution's
+// reciprocals are ready before it starts, so its chain holds no division.
 
 template <int n, int m>
 __device__ __forceinline__ void lu_solve(double A[n][n], double B[n][m]) {
@@ -271,11 +216,11 @@ __device__ __forceinline__ void lu_solve(double A[n][n], double B[n][m]) {
         }
       }
     }
-    const double p = A[k][k];
+    const double p = A[k][k], rp = 1.0 / p;
     if (p != 0.0) {
 #pragma unroll
       for (int i = k + 1; i < n; ++i) {
-        const double l = A[i][k] / p;
+        const double l = A[i][k] * rp;
 #pragma unroll
         for (int j = k + 1; j < n; ++j) A[i][j] -= l * A[k][j];
 #pragma unroll
@@ -290,7 +235,7 @@ __device__ __forceinline__ void lu_solve(double A[n][n], double B[n][m]) {
       double s = B[k][j];
 #pragma unroll
       for (int i = k + 1; i < n; ++i) s -= A[k][i] * B[i][j];
-      B[k][j] = s / A[k][k];
+      B[k][j] = s * (1.0 / A[k][k]);
     }
   }
 }
@@ -474,28 +419,26 @@ __device__ __forceinline__ void project_so3(const double X[3][3], double Rout[3]
 // ---------------------------------------------------------------------------
 // The steps of solve_marker_pose.
 
-// undistort_points: 8 fixed-point trips from the distorted normalized coords
-__device__ __forceinline__ void undistort(const double px[8], const Cam& c, double xy[8]) {
+// undistort_points: 8 fixed-point trips from the distorted normalized
+// coords of one corner
+__device__ __forceinline__ void undistort_corner(double pu, double pv, const Cam& c, double& x,
+                                                 double& y) {
   const double k1 = c.k[0], k2 = c.k[1], p1 = c.k[2], p2 = c.k[3], k3 = c.k[4], k4 = c.k[5],
                k5 = c.k[6], k6 = c.k[7], s1 = c.k[8], s2 = c.k[9], s3 = c.k[10], s4 = c.k[11];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const double tx = (px[2 * k] - c.cx) / c.fx, ty = (px[2 * k + 1] - c.cy) / c.fy;
-    double x = tx, y = ty;
+  const double tx = (pu - c.cx) / c.fx, ty = (pv - c.cy) / c.fy;
+  x = tx;
+  y = ty;
 #pragma unroll 1
-    for (int it = 0; it < 8; ++it) {
-      const double r2 = x * x + y * y;
-      const double r4 = r2 * r2;
-      const double r6 = r4 * r2;
-      const double radial =
-          (1.0 + k1 * r2 + k2 * r4 + k3 * r6) / (1.0 + k4 * r2 + k5 * r4 + k6 * r6);
-      const double dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x) + s1 * r2 + s2 * r4;
-      const double dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y + s3 * r2 + s4 * r4;
-      x = (tx - dx) / radial;
-      y = (ty - dy) / radial;
-    }
-    xy[2 * k] = x;
-    xy[2 * k + 1] = y;
+  for (int it = 0; it < 8; ++it) {
+    const double r2 = x * x + y * y;
+    const double r4 = r2 * r2;
+    const double r6 = r4 * r2;
+    const double radial =
+        (1.0 + k1 * r2 + k2 * r4 + k3 * r6) / (1.0 + k4 * r2 + k5 * r4 + k6 * r6);
+    const double dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x) + s1 * r2 + s2 * r4;
+    const double dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y + s3 * r2 + s4 * r4;
+    x = (tx - dx) / radial;
+    y = (ty - dy) / radial;
   }
 }
 
@@ -594,8 +537,8 @@ __device__ __forceinline__ double ippe_candidate(double sign, const double P[2][
   return any_behind && !any_nan ? INFINITY : err2;
 }
 
-__device__ void ippe_square(const double q[4][2], const double xy[8], double R[3][3],
-                            double t[3]) {
+__device__ __forceinline__ void ippe_square(const double q[4][2], const double xy[8],
+                                            double R[3][3], double t[3]) {
   double H[3][3];
   homography(q, xy, H);
   const double v0 = H[0][2], v1 = H[1][2];
@@ -660,8 +603,8 @@ __device__ void ippe_square(const double q[4][2], const double xy[8], double R[3
 
 // iterative_planar's initialization: R ~ [h1/s, h2/s, h1 x h2 / s^2]
 // projected onto SO(3), t = h3/s, s = sqrt(|h1||h2|)
-__device__ void homography_init(const double q[4][2], const double xy[8], double R[3][3],
-                                double t[3]) {
+__device__ __forceinline__ void homography_init(const double q[4][2], const double xy[8],
+                                                double R[3][3], double t[3]) {
   double H[3][3];
   homography(q, xy, H);
   const double h1[3] = {H[0][0], H[1][0], H[2][0]}, h2[3] = {H[0][1], H[1][1], H[2][1]};
@@ -682,119 +625,9 @@ __device__ void homography_init(const double q[4][2], const double xy[8], double
   t[2] = H[2][2] / s;
 }
 
-// Sum of squared pixel residuals at parameters p (the LM trial).
-__device__ __forceinline__ double lm_cost(const double p[6], const Cam& cam,
-                                          const double q[4][2], const double px[8]) {
-  double R[3][3];
-  rodrigues(p, R);
-  double cost = 0.0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    double u, v;
-    project(R, p + 3, cam, q[k][0], q[k][1], u, v);
-    const double ru = u - px[2 * k], rv = v - px[2 * k + 1];
-    cost += ru * ru + rv * rv;
-  }
-  return cost;
-}
-
-// refine_lm: (R, t) -> p = (so3_log(R), t), `iters` LM trips, back to
-// (rodrigues(p[:3]), p[3:]); one copy of the body for both methods' calls
-__device__ __noinline__ void refine_lm(double R[3][3], double t[3], const Cam& cam,
-                                      const double q[4][2], const double px[8], int iters) {
-  double p[6];
-  so3_log(R, p);
-  p[3] = t[0];
-  p[4] = t[1];
-  p[5] = t[2];
-  double lam = 1e-3;
-  for (int it = 0; it < iters; ++it) {
-    double JtJ[6][6], g[6][1], cost = 0.0;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      g[i][0] = 0.0;
-#pragma unroll
-      for (int j = 0; j < 6; ++j) JtJ[i][j] = 0.0;
-    }
-    {
-      Dual w[3], tt[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        w[i].v = p[i];
-        tt[i].v = p[3 + i];
-#pragma unroll
-        for (int k = 0; k < NT; ++k) {
-          w[i].d[k] = k == i ? 1.0 : 0.0;
-          tt[i].d[k] = k == 3 + i ? 1.0 : 0.0;
-        }
-      }
-      Dual Rd[3][3];
-      rodrigues(w, Rd);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        Dual u, v;
-        project(Rd, tt, cam, q[k][0], q[k][1], u, v);
-        // two rows of the Jacobian: accumulate J^T J, J^T r and r^T r
-#pragma unroll
-        for (int row = 0; row < 2; ++row) {
-          const Dual& r = row == 0 ? u : v;
-          const double rv = r.v - px[2 * k + row];
-          cost += rv * rv;
-#pragma unroll
-          for (int i = 0; i < 6; ++i) {
-            g[i][0] += r.d[i] * rv;
-#pragma unroll
-            for (int j = i; j < 6; ++j) JtJ[i][j] += r.d[i] * r.d[j];
-          }
-        }
-      }
-    }
-    double A[6][6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const double a = i <= j ? JtJ[i][j] : JtJ[j][i];
-        A[i][j] = i == j ? a + lam * a + 1e-12 : a;
-      }
-    lu_solve<6, 1>(A, g);  // g becomes the step
-    double pn[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) pn[i] = p[i] - g[i][0];
-    const bool accept = lm_cost(pn, cam, q, px) < cost;
-    if (accept) {
-#pragma unroll
-      for (int i = 0; i < 6; ++i) p[i] = pn[i];
-    }
-    lam = clamp(accept ? lam * 0.3 : lam * 3.0, 1e-12, 1e12);
-  }
-  rodrigues(p, R);
-  t[0] = p[3];
-  t[1] = p[4];
-  t[2] = p[5];
-}
-
-__global__ void __launch_bounds__(THREADS) pnp_block_kernel(
-    const double* __restrict__ corners, const long long* __restrict__ ids,
-    const unsigned char* __restrict__ valid, const double* __restrict__ Ks,
-    const double* __restrict__ dists, double* __restrict__ out, int n, int D, int lm_iters,
-    int method, double marker_size) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  double* o = out + (size_t)i * 23;
-  double px[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    px[k] = corners[(size_t)i * 8 + k];
-    o[k] = px[k];
-  }
-  o[8] = (double)ids[i];
-  if (!valid[i]) {
-#pragma unroll
-    for (int k = 9; k < 23; ++k) o[k] = 0.0;
-    return;
-  }
-  const int b = i / D;
+// The camera of image b: fx, fy, cx, cy and the 12 modeled coefficients
+__device__ __forceinline__ Cam load_cam(const double* __restrict__ Ks,
+                                        const double* __restrict__ dists, int b) {
   Cam cam;
   const double* K = Ks + (size_t)b * 9;
   cam.fx = K[0];
@@ -803,32 +636,12 @@ __global__ void __launch_bounds__(THREADS) pnp_block_kernel(
   cam.cy = K[5];
 #pragma unroll
   for (int k = 0; k < 12; ++k) cam.k[k] = dists[(size_t)b * 14 + k];
-  // marker_object_points: TL, TR, BR, BL at half the marker size
-  const double h = marker_size * 0.5;
-  const double q[4][2] = {{-h, h}, {h, h}, {h, -h}, {-h, -h}};
-  double xy[8];
-  undistort(px, cam, xy);
-  double R[3][3], t[3];
-  if (method == 0) {
-    ippe_square(q, xy, R, t);
-  } else {
-    homography_init(q, xy, R, t);
-    refine_lm(R, t, cam, q, px, lm_iters);
-  }
-  refine_lm(R, t, cam, q, px, lm_iters);
-  // reprojection_error_max (amax propagates NaN, fmax drops it)
-  double err = 0.0;
-  bool any_nan = false;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    double u, v;
-    project(R, t, cam, q[k][0], q[k][1], u, v);
-    const double du = u - px[2 * k], dv = v - px[2 * k + 1];
-    const double e = sqrt(du * du + dv * dv);
-    any_nan |= isnan(e);
-    err = fmax(err, e);
-  }
-  if (any_nan) err = NAN;
+  return cam;
+}
+
+// A valid slot's ok, R, t and error (o[9:23]); ok where all are finite
+__device__ __forceinline__ void write_pose(double* o, const double R[3][3], const double t[3],
+                                           double err) {
   bool finite = isfinite(err);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -847,17 +660,198 @@ __global__ void __launch_bounds__(THREADS) pnp_block_kernel(
   o[22] = err;
 }
 
+// ---------------------------------------------------------------------------
+// The kernel: one warp per slot.
+//
+// Lane roles in the LM: lane 6k + j (k < 4, j < 6) carries tangent j of
+// corner k's two residual rows, lane 24 + k corner k's residuals
+// themselves, lanes 28-31 repeat lane 27's corner.  Every lane projects its
+// corner lane_corner(lane) on a dual number with one tangent.
+
+constexpr int SLOTS = 4;  // slots (warps) a block
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int lane_corner(int lane) {
+  return lane < 24 ? lane / 6 : min(lane - 24, 3);
+}
+
+// The lane that holds column c of corner k's two rows (c = 6: the residual)
+__device__ __forceinline__ int column_lane(int k, int c) { return c < 6 ? 6 * k + c : 24 + k; }
+
+// The two columns whose products the lane sums over the 8 rows: lanes 0-20
+// the upper triangle of J^T J row by row, lanes 21-26 J^T r, 27-31 r^T r
+__device__ __forceinline__ void lane_entry(int lane, int& a, int& b) {
+  a = 6;
+  b = 6;
+  if (lane < 21) {
+    int r = lane;
+    a = 0;
+    while (r >= 6 - a) {
+      r -= 6 - a;
+      ++a;
+    }
+    b = a + r;
+  } else if (lane < 27) {
+    a = lane - 21;
+  }
+}
+
+// The lane's entries of corner k's two rows at p (k = lane_corner(lane)):
+// the tangent-j derivatives of u and v on lanes below 24, the residuals u
+// - px, v - py on the others.
+__device__ __forceinline__ void lm_rows(const double p[6], const Cam& cam, double qx, double qy,
+                                        double pu, double pv, int lane, double& cu, double& cv) {
+  const int j = lane < 24 ? lane % 6 : 0;
+  Dual w[3], tt[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    w[i].v = p[i];
+    w[i].d = j == i ? 1.0 : 0.0;
+    tt[i].v = p[3 + i];
+    tt[i].d = j == 3 + i ? 1.0 : 0.0;
+  }
+  Dual R[3][3];
+  rodrigues(w, R);
+  Dual u, v;
+  project(R, tt, cam, qx, qy, u, v);
+  cu = lane < 24 ? u.d : u.v - pu;
+  cv = lane < 24 ? v.d : v.v - pv;
+}
+
+// The LM trial's cost from the residual lanes: the corners' squared
+// residuals summed in corner order
+__device__ __forceinline__ double warp_cost(double cu, double cv) {
+  const double e = cu * cu + cv * cv;
+  double cost = 0.0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cost += __shfl_sync(FULL, e, 24 + k);
+  return cost;
+}
+
+// refine_lm across the warp.  Each trip: the lanes' columns give J^T J,
+// J^T r and r^T r, each entry summed by one lane over the 8 rows in the
+// plain version's order (corner 0's u row, its v row, corner 1's, ...);
+// every lane gathers the 28 sums and solves the damped 6x6 system itself;
+// the lanes then evaluate their rows at the trial point, whose residual
+// lanes give the trial cost and, if it is accepted, the next trip's rows.
+// On return (cu, cv) hold the rows at the final p.
+__device__ __forceinline__ void refine_lm(double R[3][3], double t[3], const Cam& cam,
+                                          double qx, double qy, double pu, double pv, int lane,
+                                          int iters, double& cu, double& cv) {
+  int ea, eb;
+  lane_entry(lane, ea, eb);
+  double p[6];
+  so3_log(R, p);
+  p[3] = t[0];
+  p[4] = t[1];
+  p[5] = t[2];
+  lm_rows(p, cam, qx, qy, pu, pv, lane, cu, cv);
+  double lam = 1e-3;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    double s = 0.0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int la = column_lane(k, ea), lb = column_lane(k, eb);
+      s += __shfl_sync(FULL, cu, la) * __shfl_sync(FULL, cu, lb);
+      s += __shfl_sync(FULL, cv, la) * __shfl_sync(FULL, cv, lb);
+    }
+    double A[6][6], g[6][1];
+#pragma unroll
+    for (int i = 0, e = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = i; j < 6; ++j, ++e) {
+        const double a = __shfl_sync(FULL, s, e);
+        A[i][j] = i == j ? a + lam * a + 1e-12 : a;
+        A[j][i] = A[i][j];
+      }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) g[i][0] = __shfl_sync(FULL, s, 21 + i);
+    const double cost = __shfl_sync(FULL, s, 27);
+    lu_solve<6, 1>(A, g);  // g becomes the step
+    double pn[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) pn[i] = p[i] - g[i][0];
+    double nu, nv;
+    lm_rows(pn, cam, qx, qy, pu, pv, lane, nu, nv);
+    const bool accept = warp_cost(nu, nv) < cost;
+    if (accept) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) p[i] = pn[i];
+      cu = nu;
+      cv = nv;
+    }
+    lam = clamp(accept ? lam * 0.3 : lam * 3.0, 1e-12, 1e12);
+  }
+  rodrigues(p, R);
+  t[0] = p[3];
+  t[1] = p[4];
+  t[2] = p[5];
+}
+
+__global__ void __launch_bounds__(SLOTS * 32) pnp_block_kernel(
+    const double* __restrict__ corners, const long long* __restrict__ ids,
+    const unsigned char* __restrict__ valid, const double* __restrict__ Ks,
+    const double* __restrict__ dists, double* __restrict__ out, int n, int D, int lm_iters,
+    int method, double marker_size) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * SLOTS + (threadIdx.x >> 5);
+  if (i >= n) return;
+  double* o = out + (size_t)i * 23;
+  const double* px = corners + (size_t)i * 8;
+  if (lane < 9) o[lane] = lane < 8 ? px[lane] : (double)ids[i];
+  if (!valid[i]) {
+    if (lane >= 9 && lane < 23) o[lane] = 0.0;
+    return;
+  }
+  const Cam cam = load_cam(Ks, dists, i / D);
+  // marker_object_points: TL, TR, BR, BL at half the marker size
+  const double h = marker_size * 0.5;
+  const double q[4][2] = {{-h, h}, {h, h}, {h, -h}, {-h, -h}};
+  const int k = lane_corner(lane);
+  const double qx = k == 0 || k == 3 ? -h : h, qy = k < 2 ? h : -h;
+  const double pu = px[2 * k], pv = px[2 * k + 1];
+  // each lane undistorts its corner; every lane gathers the four
+  double x, y, xy[8];
+  undistort_corner(pu, pv, cam, x, y);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    xy[2 * c] = __shfl_sync(FULL, x, 6 * c);
+    xy[2 * c + 1] = __shfl_sync(FULL, y, 6 * c);
+  }
+  double R[3][3], t[3], cu, cv;
+  if (method == 0)
+    ippe_square(q, xy, R, t);
+  else
+    homography_init(q, xy, R, t);
+  for (int pass = 0; pass <= method; ++pass)
+    refine_lm(R, t, cam, qx, qy, pu, pv, lane, lm_iters, cu, cv);
+  // reprojection_error_max from the residual lanes at the final p (amax
+  // propagates NaN, fmax drops it)
+  const double e = sqrt(cu * cu + cv * cv);
+  double err = 0.0;
+  bool any_nan = false;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const double ec = __shfl_sync(FULL, e, 24 + c);
+    any_nan |= isnan(ec);
+    err = fmax(err, ec);
+  }
+  if (any_nan) err = NAN;
+  if (lane == 0) write_pose(o, R, t, err);
+}
+
 }  // namespace
 
-// One launch per batch of n = B * D slots on `stream`; returns
-// cudaGetLastError().  method: 0 ippe_square, 1 iterative.
+// One launch per batch of n = B * D slots on `stream`, a warp a slot;
+// returns cudaGetLastError().  method: 0 ippe_square, 1 iterative.
 extern "C" int pnp_block_f64(const void* corners, const void* ids, const void* valid,
                              const void* Ks, const void* dists, void* out, int n, int D,
                              int lm_iters, int method, double marker_size, void* stream) {
   if (n <= 0 || D <= 0 || n % D || lm_iters < 0 || (method != 0 && method != 1))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (n + THREADS - 1) / THREADS;
-  pnp_block_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (n + SLOTS - 1) / SLOTS;
+  pnp_block_kernel<<<blocks, SLOTS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(corners), static_cast<const long long*>(ids),
       static_cast<const unsigned char*>(valid), static_cast<const double*>(Ks),
       static_cast<const double*>(dists), static_cast<double*>(out), n, D, lm_iters, method,

@@ -327,8 +327,9 @@ def pnp_block(corners, ids, valid, Ks, dists, marker_size, lm_iters: int = 20,
     where a valid slot's pose and error are finite.
 
     CPU tensors take :func:`pnp_block_plain`.  CUDA tensors launch the
-    kernel of ``vican_torch/csrc/pnp.cu`` (one thread per slot, float64, no
-    host sync), or raise; each launch adds one to ``pnp_block.launches``.
+    kernel of ``vican_torch/csrc/pnp.cu`` (one warp per slot, its lanes
+    across the LM Jacobian's tangents and corners, float64, no host sync),
+    or raise; each launch adds one to ``pnp_block.launches``.
     """
     if method not in PNP_METHODS:
         raise ValueError(f"unknown PnP method: {method!r}")
