@@ -26,7 +26,8 @@ device split, then drives two paths:
   estimate_pose_gray``, on 384 frames at 1280x720 (8 cameras around a
   24-marker cube, 48 timesteps, rendered on the card by
   ``vican_torch.render``), thresholded by the ``multi_threshold`` kernel and
-  labeled by the C labeler, PnP solved by the ``pnp_block`` kernel once a
+  labeled, gated and re-fit by the C module in one call a batch on the
+  pipeline's feed thread, PnP solved by the ``pnp_block`` kernel once a
   batch (:func:`pnp_phase` then holds it to its plain version on the
   scene's first batch and on seeded slots); the same frames on the CPU
   must give the same
@@ -62,7 +63,8 @@ kernels' JSON line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, or without the rest of the repository beside it, it fails before
 printing any result.
 
-Every perception run must launch the PnP kernel once per batch.
+Every perception run must launch the PnP kernel once per batch and find
+its host candidates with the C labeler and the C gates.
 
 ``python3 chip_smoke.py --perception`` builds the threshold and PnP
 kernels and the C modules, runs the perception phases and, where the checkout has the
@@ -1087,12 +1089,15 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     """One timed ``estimate_pose_gray`` run on the card with the arguments
     ``base`` and ``kw``: ``(edges, row)``, the row with images/s, the summed
     phase split (:data:`PHASES` of the checkout), the threshold kernel's
-    launches, the PnP kernel's (None in a checkout without it) and the
-    labeler (a checkout without
-    ``perception.last_labeler`` has only scipy's); where the timer's
-    events carry a ``stage``, also the summed seconds of each stage, their
-    overlap (feed + drain - wall) and the seconds in which the worker's
-    host candidates and the drain's PnP ran at once."""
+    launches, the PnP kernel's (None in a checkout without it), the
+    labeler (a checkout without ``perception.last_labeler`` has only
+    scipy's), the gates (``perception.last_gates``; None in a checkout
+    that gates in numpy on the drain) and the run's re-fit counts
+    (``perception.gate_counts``, None there); where the timer's events
+    carry a ``stage``, also the summed seconds of each stage, the feed's
+    and the drain's ``host candidates`` seconds apart, their overlap (feed
+    + drain - wall) and the seconds in which the worker's host candidates
+    and the drain's PnP ran at once."""
     import torch
 
     from vican_torch import perception
@@ -1105,6 +1110,9 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     multi_threshold.launches = 0
     if pnp is not None:
         pnp.launches = 0
+    gate_counts = getattr(perception, "gate_counts", None)
+    if gate_counts is not None:
+        gate_counts.update(dict.fromkeys(gate_counts, 0))
     t0 = time.perf_counter()
     edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **base, **kw)
     seconds = time.perf_counter() - t0
@@ -1114,7 +1122,9 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
                phase_s=split, detections=len(edges), kernel_launches=launches,
                pnp_launches=None if pnp is None else pnp.launches,
                batches=-(-len(names) // base["batch_size"]),
-               labeler=getattr(perception, "last_labeler", "scipy"))
+               labeler=getattr(perception, "last_labeler", "scipy"),
+               gates=getattr(perception, "last_gates", None),
+               gate_counts=None if gate_counts is None else dict(gate_counts))
     stages: dict = {}
     for e in timer.events:
         if e.get("stage"):
@@ -1125,7 +1135,11 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
         spans = {n: [(e["start"], e["start"] + e["seconds"]) for e in timer.events
                      if e["name"] == n and e["stage"] == st]
                  for n, st in (("host candidates", "feed"), ("PnP", "drain"))}
+        candidates = {st: sum(e["seconds"] for e in timer.events
+                              if e["name"] == "host candidates" and e["stage"] == st)
+                      for st in ("feed", "drain")}
         row.update(stage_s=stages, overlap_s=sum(stages.values()) - seconds,
+                   host_candidates_s=candidates,
                    overlap_candidates_pnp_s=_overlap(spans["host candidates"], spans["PnP"]))
     return edges, row
 
@@ -1136,6 +1150,16 @@ def _pnp_wrapper():
     from vican_torch.ops import pnp
 
     return getattr(pnp, "pnp_block", None)
+
+
+def _host_faults(tag: str, run: dict) -> list:
+    """A host-mode run whose candidates did not come from the C labeler and
+    the C gates (an older checkout without ``last_gates`` is held to its
+    labeler alone)."""
+    faults = [] if run["labeler"] == "c" else [f"{tag}: labeled by {run['labeler']}"]
+    if run.get("gates", "c") not in ("c", None):
+        faults.append(f"{tag}: gated by {run['gates']}")
+    return faults
 
 
 def _pnp_faults(tag: str, run: dict) -> list:
@@ -1177,8 +1201,8 @@ def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
     faults = _pnp_faults("perception", run)
     if faults:
         raise AssertionError(faults)
-    if hasattr(perception, "last_labeler") and run["labeler"] != "c":
-        raise AssertionError(f"perception: labeled by {run['labeler']}, not the C labeler")
+    if hasattr(perception, "last_labeler") and _host_faults("perception", run):
+        raise AssertionError(_host_faults("perception", run))
     if len(edges) < 10 * SCENE_FRAMES:
         raise AssertionError(f"perception: only {len(edges)} detections")
 
@@ -1286,8 +1310,8 @@ def perception_modes(device_run) -> None:
               for m, r, want in (("host", host, 0), ("roi", roi, 0),
                                  ("auto", auto, auto["batches"]))
               if r["kernel_launches"] != want]
-    faults += [f"{m}: labeled by {r['labeler']}" for m, r in (("host", host), ("roi", roi))
-               if r["labeler"] != "c"]
+    for m, r in (("host", host), ("roi", roi), ("auto", auto)):
+        faults += _host_faults(m, r)
     for m, r in (("host", host), ("device", again), ("roi", roi), ("auto", auto)):
         faults += _pnp_faults(m, r)
     for name, d in diffs.items():
@@ -1350,7 +1374,8 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
     record them (``profile_all_threads``): the device busy share over the
     run and the top kernels (:func:`_trace_summary`), the CUDA kernels
     launched per batch in the ``PnP`` and ``detect program`` ranges, and
-    how long the worker's ``host candidates`` ranges (the labeler) overlap
+    how long the worker's ``host candidates`` ranges (the C labeler and
+    gates) overlap
     the calling thread's ``PnP`` ranges, from the trace where it holds the
     worker's ranges and from the timer's events in any case.  Three
     batches, not twelve: a batch launches ~1e4 kernels, each with its host
@@ -1395,11 +1420,7 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
                    and e.name not in host_names and n in e.name) / batches
             for n in ("pnp_block_kernel", "threshold_band_kernel")}
     span = lambda e: (e.time_range.start * 1e-6, e.time_range.end * 1e-6)
-    # the labeler's ranges on the worker; the candidates' gates run on the
-    # calling thread, between its PnP ranges
-    drain_threads = {e.thread for e in ranges.get("PnP", [])}
-    ranges["host candidates"] = [e for e in ranges.get("host candidates", [])
-                                 if e.thread not in drain_threads]
+    ranges.setdefault("host candidates", [])
     # (an in-order checkout's events have neither stage nor start)
     timer_spans = {n: [(e["start"], e["start"] + e["seconds"]) for e in timer.events
                        if e["name"] == n and e.get("stage") == st]
@@ -1429,7 +1450,7 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
     with its images/s, the summed seconds of the feed's and the drain's
     phases and their overlap (feed + drain - wall); every run must give
     the same edges, identical, with :data:`P_DETECTIONS` detections, one
-    threshold launch per batch and the C labeler, and those of
+    threshold launch per batch and the C labeler and gates, and those of
     ``device_edges`` where given.  Then, where cv2 imports, the frames as
     JPEG files through ``cam.estimate_pose_mp`` against
     ``estimate_pose_gray`` on ``load_images`` of the same files
@@ -1449,9 +1470,10 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
         if not run["vs_reference"]["identical"] or len(edges) != P_DETECTIONS:
             faults.append(f"depth {run['depth']}: {len(edges)} detections, "
                           f"{run['vs_reference']}")
-        if run["kernel_launches"] != run["batches"] or run["labeler"] != "c":
+        if run["kernel_launches"] != run["batches"]:
             faults.append(f"depth {run['depth']}: {run['kernel_launches']} launches for "
-                          f"{run['batches']} batches, labeler {run['labeler']}")
+                          f"{run['batches']} batches")
+        faults += _host_faults(f"depth {run['depth']}", run)
         faults += _pnp_faults(f"depth {run['depth']}", run)
     emit("pipeline", runs=runs)
 
@@ -1702,6 +1724,7 @@ def mesh_perception(mesh) -> dict:
         import cv2
     except ImportError:
         return dict(ran=False, reason="cv2 does not import: the file path did not run")
+    from vican_torch import perception
     from vican_torch.cam import estimate_pose_mp
 
     frames, names, frame_cams = perception_scene(torch.device("cuda"),
@@ -1723,10 +1746,11 @@ def mesh_perception(mesh) -> dict:
         sharded = estimate_pose_mp(files, frame_cams, mesh=mesh, **kw)
         seconds = time.perf_counter() - t0
         launches = pnp.launches
+        labeler, gates = perception.last_labeler, perception.last_gates
         single = estimate_pose_mp(files, frame_cams, **kw)
     return dict(ran=True, frames=len(names), seconds=seconds, detections=len(sharded),
                 batches=-(-len(names) // PERCEPTION_KW["batch_size"]), pnp_launches=launches,
-                vs_single=_edge_diff(single, sharded))
+                labeler=labeler, gates=gates, vs_single=_edge_diff(single, sharded))
 
 
 def mesh_phase() -> tuple[int, int]:
@@ -1761,7 +1785,7 @@ def mesh_phase() -> tuple[int, int]:
         faults.append("the sharded route never launched pwr_apply")
     per = out["perception"]
     if per["ran"]:
-        faults += _pnp_faults("perception", per)
+        faults += _pnp_faults("perception", per) + _host_faults("perception", per)
         if not per["vs_single"]["identical"] or per["detections"] < 10 * MESH_PERCEPTION_STEPS:
             faults.append(f"perception: {per['detections']} detections, {per['vs_single']}")
     if (out["backend"], out["world"]) != ("nccl", 1):
@@ -1915,6 +1939,7 @@ def tutorial_phase(dev) -> tuple[int, int]:
     if launches < batches:
         faults.append(f"{launches} threshold launches for {batches} batches")
     faults += _pnp_faults("T", dict(pnp_launches=pnp_launches, batches=batches))
+    faults += _host_faults("cube", cube_run) + _host_faults("room", room_run)
     if not (summary["SO3_deg"]["avg"] < 1.0 and summary["E3_cm"]["avg"] < 10.0):
         faults.append(f"camera errors {summary['SO3_deg']['avg']} deg, "
                       f"{summary['E3_cm']['avg']} cm on average")

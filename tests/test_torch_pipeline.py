@@ -29,7 +29,7 @@ from test_torch_perception import (KW, MARKER_SIZE, _assert_identical_edges,
                                    _assert_same_edges, _cams, _port_cams, _traj)
 from torch_threads import two_threads  # noqa: F401
 
-DRAIN = {"host candidates", "detect program", "PnP", "dict"}
+DRAIN = {"detect program", "PnP", "dict"}
 
 
 @pytest.fixture(scope="module")
@@ -130,9 +130,8 @@ def test_missing_file_raises_from_the_worker(rendered):
 
 def test_timer_events_carry_their_stage(rendered):
     """Every perception phase is a ``feed`` or a ``drain`` event with its
-    start; both stages appear, each with its own phases (the labeler runs
-    on the feed, the candidates' gates on the drain, both as ``host
-    candidates``)."""
+    start; both stages appear, each with its own phases (the host
+    candidates, the C labeler with its gates, run on the feed alone)."""
     files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
     timer = PhaseTimer(verbose=False, device="cpu")
     TP.estimate_pose_batched(files, cams, device="cpu", timer=timer, **dict(KW, batch_size=2))

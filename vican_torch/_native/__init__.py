@@ -3,7 +3,8 @@
 - ``get_fastpack()``: the edge-dict packer (``fastpack.c``);
 - ``get_fastccl()``: run-based union-find connected components and quad
   candidates over bit-packed mask rows (``fastccl.c``), perception's host
-  labeler;
+  labeler, with the candidates' gates and degenerate re-fit
+  (``quad_gates.h``, which it includes);
 - ``get_fastthresh()``: the multi-window adaptive threshold on the host,
   bit-packed out (``fastthresh.c``), for the ``host`` and ``roi``
   perception modes.
@@ -11,16 +12,17 @@
 Each is a CPython extension module copied from the JAX package's
 ``_native``.  A source compiles with the host ``gcc`` (``$CC``) against
 this interpreter's and numpy's headers into ``_build/`` (git ignores it),
-named by a hash of the source and flags.  When the build fails, or under
+named by a hash of the source, the headers here and the flags.  When the build fails, or under
 ``VICAN_TPU_NO_NATIVE=1``, the getter returns None and the caller takes its
 numpy/scipy/Python path, whose output is identical; :data:`build_errors`
 keeps the compiler's message.  A lock makes the first call of each getter
 build and load its module once, whichever threads call it.  The labeler
-and the host threshold release the GIL while they run, unlike the JAX
-package's copies.
+with its gates and the host threshold release the GIL while they run,
+unlike the JAX package's copies.
 """
 from __future__ import annotations
 
+import glob
 import hashlib
 import importlib.util
 import os
@@ -43,10 +45,14 @@ def _build(name: str) -> str | None:
 
     src = os.path.join(_HERE, f"{name}.c")
     # -march=native: the .so is built on the host that runs it; the flags
-    # are part of the name
+    # and every header here (fastccl.c includes quad_gates.h) are part of
+    # the name
     flags = ["-O3", "-march=native"]
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(_HERE, "*.h")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    tag = digest.hexdigest()[:12]
     tag += f"_py{sys.version_info.major}{sys.version_info.minor}"
     cache_dir = os.path.join(_HERE, "_build")
     os.makedirs(cache_dir, exist_ok=True)

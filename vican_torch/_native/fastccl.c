@@ -35,8 +35,15 @@
  * vican_tpu/_native/fastccl.c with the same output, byte for byte, except
  * that every entry point labels with the GIL released (perception's feed
  * thread labels while the calling thread runs detection) and the batch
- * entry point is added.  Validated against the JAX package's module and
+ * entry points are added.  Validated against the JAX package's module and
  * the scipy fallback in tests/test_torch_fastccl.py.
+ *
+ * Added here: the candidates' winding, gates and degenerate re-fit
+ * (quad_gates.h, included below the labeler and compiled without
+ * floating-point contraction), as quad_candidates_gated_batch() (labeler
+ * and gates, a batch in one call) and gate_candidates_batch() (the gates
+ * on given slots); tests/test_torch_gates.py holds them to the numpy
+ * gates.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -362,6 +369,8 @@ done:
     return rc;
 }
 
+#include "quad_gates.h"
+
 /* quad_candidates(fg_bytes, H, W, K, min_area, max_area)
  *   fg_bytes: contiguous uint8 (H*W), nonzero = foreground
  * quad_candidates_packed(packed_bytes, H, W, Wb, K, min_area, max_area)
@@ -505,6 +514,144 @@ static PyObject *quad_candidates_batch(PyObject *self, PyObject *args) {
     Py_RETURN_NONE;
 }
 
+/* The checks shared by the two gated entry points: the shape, the packed
+ * masks and the output buffers of a (B, Wn, H, Wb) batch of Ks slots a
+ * window.  Returns NULL or the error's message. */
+static const char *gated_args_error(Py_ssize_t B, Py_ssize_t Wn, Py_ssize_t H, Py_ssize_t W,
+                                    Py_ssize_t Wb, Py_ssize_t K, Py_ssize_t K2,
+                                    const Py_buffer *fg, const Py_buffer *q,
+                                    const Py_buffer *a, const Py_buffer *v,
+                                    const Py_buffer *st) {
+    const Py_ssize_t slots = B * Wn * (K + K2);
+    if (B < 0 || Wn < 0 || H < 0 || W < 0 || K < 0 || K2 < 0 || Wb * 8 < W || Wb <= 0)
+        return "bad shape";
+    if (fg->len < B * Wn * H * Wb)
+        return "packed buffer too small";
+    if (q->len < slots * 8 * (Py_ssize_t)sizeof(float)
+        || a->len < slots * (Py_ssize_t)sizeof(float) || v->len < slots
+        || st->len < GS_N * (Py_ssize_t)sizeof(int64_t))
+        return "output buffer too small";
+    return NULL;
+}
+
+/* quad_candidates_gated_batch(packed, B, Wn, H, W, Wb, K, K2, min_area,
+ *                             max_area, border_margin, min_hollow_side,
+ *                             quads_out, areas_out, valid_out, stats_out)
+ *   packed: contiguous bit-packed (B, Wn, H, Wb) masks (the layout of
+ *   qc_core); the outputs are writable contiguous buffers that the call
+ *   fills: quads float32 (B, Wn*(K+K2), 4, 2), areas float32
+ *   (B, Wn*(K+K2)), valid bool (B, Wn*(K+K2)), stats int64 (GS_N,), the
+ *   re-fit counters of quad_gates.h.
+ * Each (frame, window) is labeled as quad_candidates_batch labels it, then
+ * wound, gated and re-fit as vican_torch/perception.py's _gated_candidates
+ * does it (quad_gates.h), byte for byte: the whole of perception's host
+ * candidates for a batch in ONE call with the GIL released.  Returns None.
+ */
+static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
+    Py_buffer fg, q_out, a_out, v_out, s_out;
+    Py_ssize_t B, Wn, H, W, Wb, K, K2;
+    GateParams gp;
+    double max_area;
+    if (!PyArg_ParseTuple(args, "y*nnnnnnnddddw*w*w*w*", &fg, &B, &Wn, &H, &W, &Wb, &K, &K2,
+                          &gp.min_area, &max_area, &gp.border_margin, &gp.min_hollow_side,
+                          &q_out, &a_out, &v_out, &s_out))
+        return NULL;
+    const char *err = gated_args_error(B, Wn, H, W, Wb, K, K2, &fg, &q_out, &a_out, &v_out,
+                                       &s_out);
+    int rc = 0;
+    if (!err) {
+        const Py_ssize_t Ks = K + K2;
+        const uint8_t *im = (const uint8_t *)fg.buf;
+        float *quads = (float *)q_out.buf, *areas = (float *)a_out.buf;
+        uint8_t *valid = (uint8_t *)v_out.buf;
+        int64_t *stats = (int64_t *)s_out.buf;
+        gp.H = H;
+        gp.W = W;
+        Py_BEGIN_ALLOW_THREADS
+        int32_t *areas_i = (int32_t *)malloc((size_t)Ks * sizeof(int32_t) + 1);
+        rc = areas_i ? 0 : -1;
+        memset(stats, 0, GS_N * sizeof(int64_t));
+        for (Py_ssize_t m = 0; m < B * Wn && !rc; m++) {
+            const uint8_t *mask = im + (size_t)m * H * Wb;
+            int n8, n4;
+            rc = qc_core(mask, H, W, Wb, K, K2, gp.min_area, max_area,
+                         quads + (size_t)m * Ks * 8, areas_i, &n8, &n4);
+            if (!rc)
+                rc = gate_window(mask, Wb, &gp, K, Ks, n8, n4, quads + (size_t)m * Ks * 8,
+                                 areas_i, areas + (size_t)m * Ks, valid + (size_t)m * Ks, stats);
+        }
+        free(areas_i);
+        Py_END_ALLOW_THREADS
+    }
+    PyBuffer_Release(&fg);
+    PyBuffer_Release(&q_out);
+    PyBuffer_Release(&a_out);
+    PyBuffer_Release(&v_out);
+    PyBuffer_Release(&s_out);
+    if (err) {
+        PyErr_SetString(PyExc_ValueError, err);
+        return NULL;
+    }
+    if (rc) return PyErr_NoMemory();
+    Py_RETURN_NONE;
+}
+
+/* gate_candidates_batch(packed, B, Wn, H, W, Wb, K, K2, min_area,
+ *                       border_margin, min_hollow_side, quads, areas,
+ *                       counts, areas_out, valid_out, stats_out)
+ *   The gates and re-fits of quad_candidates_gated_batch on slots given in
+ *   quad_candidates_batch's layout: quads float32 (B, Wn*(K+K2), 4, 2),
+ *   wound and re-fit in place, areas int32 (B, Wn*(K+K2)) and counts int32
+ *   (B, Wn, 2) = (count8, count4) read; areas_out, valid_out and stats_out
+ *   as there.  The GIL is released.  Returns None.
+ */
+static PyObject *gate_candidates_batch(PyObject *self, PyObject *args) {
+    Py_buffer fg, q_io, a_in, n_in, a_out, v_out, s_out;
+    Py_ssize_t B, Wn, H, W, Wb, K, K2;
+    GateParams gp;
+    if (!PyArg_ParseTuple(args, "y*nnnnnnndddw*y*y*w*w*w*", &fg, &B, &Wn, &H, &W, &Wb, &K, &K2,
+                          &gp.min_area, &gp.border_margin, &gp.min_hollow_side, &q_io, &a_in,
+                          &n_in, &a_out, &v_out, &s_out))
+        return NULL;
+    const Py_ssize_t Ks = K + K2;
+    const char *err = gated_args_error(B, Wn, H, W, Wb, K, K2, &fg, &q_io, &a_out, &v_out,
+                                       &s_out);
+    if (!err && (a_in.len < B * Wn * Ks * (Py_ssize_t)sizeof(int32_t)
+                 || n_in.len < B * Wn * 2 * (Py_ssize_t)sizeof(int32_t)))
+        err = "input buffer too small";
+    int rc = 0;
+    if (!err) {
+        const uint8_t *im = (const uint8_t *)fg.buf;
+        const int32_t *areas_i = (const int32_t *)a_in.buf, *counts = (const int32_t *)n_in.buf;
+        float *quads = (float *)q_io.buf, *areas = (float *)a_out.buf;
+        uint8_t *valid = (uint8_t *)v_out.buf;
+        int64_t *stats = (int64_t *)s_out.buf;
+        gp.H = H;
+        gp.W = W;
+        Py_BEGIN_ALLOW_THREADS
+        memset(stats, 0, GS_N * sizeof(int64_t));
+        for (Py_ssize_t m = 0; m < B * Wn && !rc; m++)
+            rc = gate_window(im + (size_t)m * H * Wb, Wb, &gp, K, Ks, counts[2 * m],
+                             counts[2 * m + 1], quads + (size_t)m * Ks * 8,
+                             areas_i + (size_t)m * Ks, areas + (size_t)m * Ks,
+                             valid + (size_t)m * Ks, stats);
+        Py_END_ALLOW_THREADS
+    }
+    PyBuffer_Release(&fg);
+    PyBuffer_Release(&q_io);
+    PyBuffer_Release(&a_in);
+    PyBuffer_Release(&n_in);
+    PyBuffer_Release(&a_out);
+    PyBuffer_Release(&v_out);
+    PyBuffer_Release(&s_out);
+    if (err) {
+        PyErr_SetString(PyExc_ValueError, err);
+        return NULL;
+    }
+    if (rc) return PyErr_NoMemory();
+    Py_RETURN_NONE;
+}
+
 static PyMethodDef methods[] = {
     {"quad_candidates", quad_candidates, METH_VARARGS,
      "Run-based union-find CCL + farthest-point quad corners."},
@@ -514,6 +661,10 @@ static PyMethodDef methods[] = {
      "Packed variant that also emits 4-connected split candidates."},
     {"quad_candidates_batch", quad_candidates_batch, METH_VARARGS,
      "quad_candidates_packed2 over a (B, Wn, H, Wb) batch in one call, into buffers."},
+    {"quad_candidates_gated_batch", quad_candidates_gated_batch, METH_VARARGS,
+     "quad_candidates_batch, then the winding, gates and re-fits, in one call."},
+    {"gate_candidates_batch", gate_candidates_batch, METH_VARARGS,
+     "The winding, gates and re-fits of quad_candidates_gated_batch on given slots."},
     {NULL, NULL, 0, NULL},
 };
 

@@ -11,9 +11,11 @@ vican_tpu/perception.py:21-26):
    multi_threshold`), which returns bit-packed masks;
 3. fetch the packed masks (W/8 bytes per row and window) to the host;
 4. extract quad candidates on the host: the run-based union-find of
-   ``_native/fastccl.c`` reads the packed rows directly (the scipy.ndimage
-   labeler, bit-identical by construction, when the C build fails;
-   :data:`last_labeler` says which ran);
+   ``_native/fastccl.c`` reads the packed rows directly, then winds, gates
+   and re-fits the candidates (``_native/quad_gates.h``), the whole batch
+   in one call without the GIL (the scipy.ndimage labeler and the numpy
+   gates, bit-identical by construction, when the C build fails;
+   :data:`last_labeler` and :data:`last_gates` say which ran);
 5. refine, decode and deduplicate the candidates on the card over the
    resident frame (:mod:`vican_torch.ops.detect`);
 6. solve each detection's pose (:mod:`vican_torch.ops.pnp`) and fetch one
@@ -100,6 +102,16 @@ PHASES = ("upload", "threshold kernel", "masks to host", "host threshold",
 # the host labeler that the last quads_from_masks / quads_from_packed_masks
 # call ran: "c" (_native/fastccl.c) or "scipy"
 last_labeler: str | None = None
+# the candidates' gates and re-fit that it ran: "c" (_native/quad_gates.h,
+# in the labeler's call) or "numpy" (_gated_candidates)
+last_gates: str | None = None
+
+# the C gates' re-fit branches (quad_gates.h's GateStat, in order), summed
+# over every call since the caller last set them to 0: a diagnostic count,
+# as a kernel wrapper's ``launches``
+GATE_COUNTS = ("refits", "conn4", "widened", "clamped", "mismatch", "exhausted",
+               "no_hull", "rejected", "accepted")
+gate_counts: dict = dict.fromkeys(GATE_COUNTS, 0)
 
 
 def load_images(filenames: Iterable[str], grayscale: bool = False) -> np.ndarray:
@@ -216,7 +228,7 @@ def _quad_gates(quads: np.ndarray, areas: np.ndarray, H: int, W: int, params) ->
     # largest window), so ordinary-size junk keeps facing the fill gate
     # (OpenCV's contour extraction has no fill gate; decode is the backstop).
     perim = edge_len.sum(-1)
-    min_hollow_side = 4.0 * max(params.win_sizes)
+    min_hollow_side = _min_hollow_side(params)
     outline = (areas >= np.maximum(perim, 1.0)) & (
         quad_area >= min_hollow_side * min_hollow_side
     )
@@ -287,10 +299,11 @@ def _refit_degenerate_quad(mask, quad, area, H, W, conn4=False):
     through the AprilTag quad detector's gradient clustering
     (reference cam.py:147); the geometric equivalent here is the
     MAXIMUM-AREA QUADRILATERAL ON THE COMPONENT'S CONVEX HULL, which
-    recovers the true corners to ~1 px on these shapes.  Shared by the C
-    and scipy extractor paths (operates downstream of both); the decode
-    stage remains the backstop, so a bad re-fit can never produce a false
-    id.  Returns the re-fit quad (float64 (4, 2)) or None.
+    recovers the true corners to ~1 px on these shapes.  The scipy
+    labeler's path runs it, and ``_native/quad_gates.h`` is its C form
+    with the same output; the decode stage remains the backstop, so a bad
+    re-fit can never produce a false id.  Returns the re-fit quad (float64
+    (4, 2)) or None.
     """
     from scipy import ndimage
 
@@ -352,22 +365,20 @@ def quads_from_masks(fg: np.ndarray, params) -> tuple[np.ndarray, np.ndarray, np
 
     Returns ``(quads (B, Q, 4, 2) float32, valid (B, Q) bool, areas)`` with
     ``Q = Wn * (max_candidates + max_candidates_4conn)``; quads are
-    clockwise-wound and gated.  The C labeler (fastccl.c's batch entry,
-    fed bit-packed rows) runs when it built; otherwise the scipy.ndimage
-    extractor below reproduces it bit for bit, 4-connected split
-    candidates included: both return the SAME slot layout and detections
-    (vican_tpu/perception.py:303-334).
+    clockwise-wound and gated.  The C labeler and gates
+    (:func:`quads_from_packed_masks` on the bit-packed rows) run when they
+    built; otherwise the scipy.ndimage extractor below and
+    :func:`_gated_candidates` reproduce them bit for bit, 4-connected
+    split candidates included: both return the SAME slot layout and
+    detections (vican_tpu/perception.py:303-334).
     """
-    global last_labeler
-    ccl = _get_ccl()
+    global last_labeler, last_gates
     H, W = fg.shape[2], fg.shape[3]
-    if ccl is not None:
-        last_labeler = "c"
-        slots = _c_slots(ccl, np.packbits(fg, axis=-1, bitorder="little"), H, W, params)
-    else:
-        last_labeler = "scipy"
-        slots = _scipy_slots(fg, params)
-    return _gated_candidates(*slots, lambda b, wi: fg[b, wi], H, W, params)
+    if _get_ccl() is not None:
+        return quads_from_packed_masks(np.packbits(fg, axis=-1, bitorder="little"), H, W,
+                                       params)
+    last_labeler, last_gates = "scipy", "numpy"
+    return _gated_candidates(*_scipy_slots(fg, params), lambda b, wi: fg[b, wi], H, W, params)
 
 
 def _candidates_scipy(fg: np.ndarray, K: int, K2: int, min_area, max_area):
@@ -458,27 +469,35 @@ def _candidates_scipy(fg: np.ndarray, K: int, K2: int, min_area, max_area):
     return corners.tobytes(), areas_out.tobytes(), nkeep8, nkeep4
 
 
-def _c_slots(ccl, packed: np.ndarray, H: int, W: int, params):
-    """The C labeler on bit-packed ``(B, Wn, >=H, ceil(W/8))`` masks, every
-    (frame, window) in ONE call that releases the GIL
-    (``fastccl.quad_candidates_batch``, byte for byte the per-window
-    ``quad_candidates_packed2``): ``(corners (B, Wn*Ks, 4, 2) float32,
-    areas (B, Wn*Ks) int32, counts (B, Wn, 2))`` with ``Ks = K + K2``
-    slots a window and counts ``(n8, n4)``."""
+def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params):
+    """The C labeler, winding, gates and re-fit on bit-packed
+    ``(B, Wn, >=H, ceil(W/8))`` masks, every (frame, window) in ONE call
+    that releases the GIL (``fastccl.quad_candidates_gated_batch``, byte for
+    byte :func:`_gated_candidates` on the slots of
+    ``fastccl.quad_candidates_batch``): ``(quads, valid, areas)`` as
+    :func:`quads_from_masks` returns them.  Adds its re-fit branches to
+    :data:`gate_counts`."""
     B, Wn, _, Wb = packed.shape
     K, K2 = params.max_candidates, params.max_candidates_4conn
     quads = np.empty((B, Wn * (K + K2), 4, 2), np.float32)
-    areas = np.empty((B, Wn * (K + K2)), np.int32)
-    counts = np.empty((B, Wn, 2), np.int32)
-    ccl.quad_candidates_batch(np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2,
-                              params.min_area, params.max_area_rate * H * W,
-                              quads, areas, counts)
-    return quads, areas, counts
+    areas = np.empty((B, Wn * (K + K2)), np.float32)
+    valid = np.empty((B, Wn * (K + K2)), bool)
+    stats = np.empty(len(GATE_COUNTS), np.int64)
+    ccl.quad_candidates_gated_batch(
+        np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, params.min_area,
+        params.max_area_rate * H * W, params.border_margin, _min_hollow_side(params),
+        quads, areas, valid, stats)
+    for name, n in zip(GATE_COUNTS, stats.tolist()):
+        gate_counts[name] += n
+    return quads, valid, areas
 
 
 def _scipy_slots(fg: np.ndarray, params):
-    """:func:`_c_slots`' output from the scipy labeler, window by window,
-    on unpacked ``(B, Wn, H, W)`` masks."""
+    """The scipy labeler's slots, window by window, on unpacked
+    ``(B, Wn, H, W)`` masks: ``(corners (B, Wn*Ks, 4, 2) float32, areas
+    (B, Wn*Ks) int32, counts (B, Wn, 2))`` with ``Ks = K + K2`` slots a
+    window and counts ``(n8, n4)``, the layout of
+    ``fastccl.quad_candidates_batch``."""
     B, Wn, H, W = fg.shape
     K, K2 = params.max_candidates, params.max_candidates_4conn
     Ks = K + K2
@@ -497,8 +516,9 @@ def _scipy_slots(fg: np.ndarray, params):
 
 
 def _gated_candidates(quads, areas, counts, mask_of, H, W, params):
-    """Shared tail of the candidate extractors: the labeler's slots
-    (:func:`_c_slots`) -> ``(quads, valid, areas float32)``: the emitted
+    """The numpy tail of the scipy labeler, and the plain version of the C
+    gates (``_native/quad_gates.h``): the labeler's slots
+    (:func:`_scipy_slots`) -> ``(quads, valid, areas float32)``: the emitted
     slots (the first ``n8`` of a window's K 8-connected slots, the first
     ``n4`` of its K2 split slots), clockwise winding, the validity gates.
     ``mask_of(b, wi)`` provides the window's foreground mask so
@@ -561,32 +581,27 @@ def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params):
     threshold kernel, its plain version and :func:`host_threshold` leave
     them).
 
-    Same output contract as :func:`quads_from_masks`.  The C labeler reads
-    the packed rows of the whole batch in one call, with the GIL released,
-    and skips empty bytes; a window is unpacked
-    only to re-fit a candidate that the gates rejected
-    (vican_tpu/perception.py:496-535).  Without the C module the masks are
-    unpacked for the scipy labeler.
+    Same output contract as :func:`quads_from_masks`, and the JAX
+    package's output (vican_tpu/perception.py:496-535).  The C module
+    labels, winds, gates and re-fits the whole batch in one call
+    (:func:`_c_candidates`): it reads the packed rows in place, skips empty
+    bytes and holds no GIL.  Without the C module the masks are unpacked
+    for the scipy labeler and :func:`_gated_candidates`.
     """
-    return _gated_candidates(*_packed_slots(packed, H, W, params), H, W, params)
-
-
-def _packed_slots(packed: np.ndarray, H: int, W: int, params):
-    """The labeler's half of :func:`quads_from_packed_masks`:
-    ``(corners, areas, counts, mask_of)`` for :func:`_gated_candidates`.
-    With the C module it runs without the GIL (:func:`_c_slots`)."""
-    global last_labeler
+    global last_labeler, last_gates
     ccl = _get_ccl()
-    if ccl is None:
-        fg = np.unpackbits(packed, axis=-1, bitorder="little")[:, :, :H, :W]
-        last_labeler = "scipy"
-        return (*_scipy_slots(fg, params), lambda b, wi: fg[b, wi])
+    if ccl is not None:
+        last_labeler, last_gates = "c", "c"
+        return _c_candidates(ccl, packed, H, W, params)
+    fg = np.unpackbits(packed, axis=-1, bitorder="little")[:, :, :H, :W]
+    last_labeler, last_gates = "scipy", "numpy"
+    return _gated_candidates(*_scipy_slots(fg, params), lambda b, wi: fg[b, wi], H, W, params)
 
-    def mask_of(b, wi):  # unpacked lazily, only for gate-rejected re-fits
-        return np.unpackbits(packed[b, wi, :H], axis=-1, bitorder="little")[:, :W]
 
-    last_labeler = "c"
-    return (*_c_slots(ccl, packed, H, W, params), mask_of)
+def _min_hollow_side(params) -> float:
+    """The side from which a quad may pass the gates as an outline
+    (:func:`_quad_gates`)."""
+    return 4.0 * max(params.win_sizes)
 
 
 def _get_thresh():
@@ -686,10 +701,10 @@ def _unpack_pnp_result(out: np.ndarray):
 class _Fed:
     """One batch as the feed stage hands it to the drain: the meta data of
     its frames, the frames ``g`` on the device, the cameras' intrinsics and
-    distortions on the device, ``candidates``, the ``pure`` mode's tensors
-    on the device, or ``slots``, the host labeler's (:func:`_packed_slots`),
-    and ``ready``, a CUDA event on the feed's stream after its last device
-    work (None on the CPU)."""
+    distortions on the device, ``candidates`` (``(quads, valid, areas)``:
+    the host modes' gated numpy arrays, the ``pure`` mode's tensors on the
+    device), and ``ready``, a CUDA event on the feed's stream after its last
+    device work (None on the CPU)."""
 
     files: list
     cams: list
@@ -697,8 +712,7 @@ class _Fed:
     g: torch.Tensor
     Ks: torch.Tensor
     dists: torch.Tensor
-    candidates: tuple = ()
-    slots: tuple | None = None
+    candidates: tuple
     ready: object = None
 
 
@@ -757,19 +771,16 @@ class _Program:
 
     def feed(self, files, cams, nb, gray, timer: PhaseTimer) -> _Fed:
         """The feed stage of one batch (uint8 gray ``(B, H, W)`` as given):
-        upload, threshold, and the labeler (the host modes) or the device
-        candidates (``pure``).  On the card it runs on the caller's current
-        stream, the feed's own (:func:`_edges`).
+        upload, threshold, and the host candidates
+        (:func:`quads_from_packed_masks`: labeler, winding, gates and
+        re-fit; the host modes) or the device candidates (``pure``).  On the
+        card it runs on the caller's current stream, the feed's own
+        (:func:`_edges`).
 
-        The host modes' candidates are split between the stages: the C
-        labeler, which releases the GIL, runs here; the winding, the gates
-        and the re-fit (:func:`_gated_candidates`, numpy and Python that
-        hold the GIL) run in :meth:`drain`, both timed as ``"host
-        candidates"``.  With the whole of :func:`quads_from_packed_masks`
-        here, a 384-frame run on an H100 (80GB HBM3, 700 W) read its PnP at
-        7.3-8.1 s against 4.6-4.8 s in order, and was no faster than the
-        in-order run: the worker's Python and the drain's launch loop
-        convoyed on the GIL."""
+        The host candidates run here whole because the C module's one call
+        a batch holds no GIL.  The numpy gates of a host without the C
+        module hold it, and there convoy with the drain on the GIL, as they
+        did on the card when they ran here beside PnP's launch loop."""
         from .ops import detect as D_
         from .ops.threshold import multi_threshold
 
@@ -786,7 +797,6 @@ class _Program:
             with timer.phase("device candidates", stage="feed"):
                 candidates = D_.device_candidates(D_.unpack_masks(packed, W), p)
                 del packed
-            slots = None
         else:
             if self.mode == "device":
                 with timer.phase("threshold kernel", stage="feed"):
@@ -798,17 +808,16 @@ class _Program:
                     host = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
                     packed = host_threshold(host, p)
             with timer.phase("host candidates", stage="feed"):
-                slots = _packed_slots(packed, H, W, p)
-            candidates = ()
+                candidates = quads_from_packed_masks(packed, H, W, p)
         ready = None
         if g.is_cuda:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(dev))
-        return _Fed(files, cams, nb, g, Ks_d, dists_d, candidates, slots, ready)
+        return _Fed(files, cams, nb, g, Ks_d, dists_d, candidates, ready)
 
     def drain(self, fed: _Fed, timer: PhaseTimer) -> _Fetched:
         """The drain stage of one batch on the calling thread's current
-        stream: wait for the feed's event, gate the host labeler's slots,
+        stream: wait for the feed's event, then
         refine, decode and dedup the candidates over the resident frames
         (:func:`vican_torch.ops.detect.detect_candidates`), solve PnP, and
         start the packed result's fetch."""
@@ -823,12 +832,8 @@ class _Program:
             for t in (fed.g, fed.Ks, fed.dists, *fed.candidates):
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     t.record_stream(stream)
-        candidates = fed.candidates
-        if fed.slots is not None:
-            with timer.phase("host candidates", stage="drain"):
-                candidates = _gated_candidates(*fed.slots, *fed.g.shape[1:], self.params)
         with timer.phase("detect program", stage="drain"):
-            det = D_.detect_candidates(fed.g.to(torch.float32), *candidates,
+            det = D_.detect_candidates(fed.g.to(torch.float32), *fed.candidates,
                                        self.codes, self.n_bits, self.params)
         with timer.phase("PnP", stage="drain"):
             out = _pnp_block(det, fed.Ks, fed.dists, self.marker_size, self.lm_iters,
@@ -905,18 +910,17 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
 
     The feed (one worker thread, :func:`_pipeline_depth` batches in flight)
     loads each batch (decodes files: cv2 releases the GIL), uploads it,
-    thresholds it and labels it (:meth:`_Program.feed`).  The calling
-    thread drains in batch order (:meth:`_Program.drain`): the candidates'
-    gates, detect and PnP, then batch i's result enters the dict after
+    thresholds it and finds its candidates (:meth:`_Program.feed`).  The
+    calling thread drains in batch order (:meth:`_Program.drain`): detect
+    and PnP, then batch i's result enters the dict after
     batch i+1's detection was launched (JAX's ``pending_d``).  Where this
     departs from JAX's split: JAX labels on the main thread (``stage_ccl``,
     vican_tpu/perception.py:1437-1461), which overlaps the device's work
     because its detection program is dispatched asynchronously.  Here
     detect and PnP are eager, and their host launch loop IS the dispatch,
-    so the labeler runs on the worker to overlap with them; the C labeler
-    and host threshold release the GIL (``_native``), and the Python that
-    follows the labeler stays on the drain (:meth:`_Program.feed` says
-    why).
+    so the host candidates run on the worker to overlap with them; the C
+    labeler with its gates and the host threshold release the GIL
+    (``_native``).
 
     Threads and streams.  On the card the worker enters the program's
     device (the caller's, which under ``mesh=`` need not be ``cuda:0``) and
@@ -928,9 +932,9 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
     calling thread's stream only, so the stages do not wait for each
     other's kernels; its events carry ``stage`` ``"feed"`` or ``"drain"``.
     On the CPU all stream handling is skipped and the same two threads
-    run.  The worker writes ``multi_threshold.launches`` and
-    :data:`last_labeler`, which read as after an in-order run once the
-    call returns.
+    run.  The worker writes ``multi_threshold.launches``,
+    :data:`last_labeler`, :data:`last_gates` and :data:`gate_counts`,
+    which read as after an in-order run once the call returns.
 
     Order and errors.  The dict is filled in batch order and, within a
     batch, slot order, whatever the depth.  An exception in either stage
