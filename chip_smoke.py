@@ -9,8 +9,9 @@ per source, all at once) and the C modules, holds each kernel against
 its plain PyTorch version at the main paths' shapes (``pwr_apply`` at cells
 B's and C's in both its designs, one read and two; ``thin_mv`` also at the
 shape of the JAX package's matvec probe; ``pnp_block`` on seeded slots and
-on the perception scene's first batch) and times both with each kernel's
-device split, then drives two paths:
+on the perception scene's first batch; ``detect_candidates`` on that batch
+at each refine kind) and times both with each kernel's device split, then
+drives two paths:
 
 - the solver, ``vican_torch.bipgo.bipartite_se3sync``, on three synthetic
   problems: A, bench.py's large_shop problem (100 cameras, 10k timesteps,
@@ -27,9 +28,11 @@ device split, then drives two paths:
   24-marker cube, 48 timesteps, rendered on the card by
   ``vican_torch.render``), thresholded by the ``multi_threshold`` kernel and
   labeled, gated and re-fit by the C module in one call a batch on the
-  pipeline's feed thread, PnP solved by the ``pnp_block`` kernel once a
-  batch (:func:`pnp_phase` then holds it to its plain version on the
-  scene's first batch and on seeded slots); the same frames on the CPU
+  pipeline's feed thread over the host's cores, refined, decoded and
+  deduplicated by the ``detect_candidates`` kernels and PnP solved by the
+  ``pnp_block`` kernel once a batch (:func:`pnp_phase` and
+  :func:`detect_phase` then hold them to their plain versions on the
+  scene's first batch); the same frames on the CPU
   must give the same
   detections, the edges must be accurate against ground truth, and
   ``bipartite_se3sync`` on them must recover all 8 cameras; then the
@@ -63,11 +66,11 @@ kernels' JSON line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, or without the rest of the repository beside it, it fails before
 printing any result.
 
-Every perception run must launch the PnP kernel once per batch and find
-its host candidates with the C labeler and the C gates.
+Every perception run must launch the detect and PnP kernels once per
+batch and find its host candidates with the C labeler and the C gates.
 
-``python3 chip_smoke.py --perception`` builds the threshold and PnP
-kernels and the C modules, runs the perception phases and, where the checkout has the
+``python3 chip_smoke.py --perception`` builds the threshold, PnP and
+detect kernels and the C modules, runs the perception phases and, where the checkout has the
 host modes, :func:`perception_modes`, and stops (it also runs in an older
 checkout, to time its perception in the same call);
 ``python3 chip_smoke.py --kernels`` stops after the kernel phases;
@@ -77,15 +80,17 @@ older checkout's kernels too; ``python3 chip_smoke.py --threshold`` builds
 the threshold kernel, renders the 32 frames its phase needs, runs
 :func:`threshold_phase` (it too runs in an older checkout), then, where
 the checkout has the launch plan, :func:`threshold_sweep`, and stops;
-``python3 chip_smoke.py --tutorial`` builds the threshold and PnP kernels
-and the C modules, runs :func:`tutorial_phase`, and stops; ``--pnp`` builds
+``python3 chip_smoke.py --tutorial`` builds the threshold, PnP and detect
+kernels and the C modules, runs :func:`tutorial_phase`, and stops; ``--pnp`` builds
 the same, renders 32 frames and runs :func:`pnp_phase` alone; ``--pure``
 builds the same, runs the perception phases and :func:`pure_phase`, with ``--save
 PATH`` writes the pure phase's frames and both modes' edges to ``PATH``
 (:func:`save_pure_frames`), and stops;
-``--mesh`` builds ``pwr.cu``, the threshold and PnP kernels and the C
-modules, runs :func:`mesh_phase`, and stops; ``--pipeline`` builds the
-threshold and PnP kernels and the C modules,
+``--detect`` builds the same, renders 32 frames and runs
+:func:`detect_phase` alone;
+``--mesh`` builds ``pwr.cu``, the threshold, PnP and detect kernels and
+the C modules, runs :func:`mesh_phase`, and stops; ``--pipeline`` builds the
+threshold, PnP and detect kernels and the C modules,
 renders the perception scene, runs it once to warm up, then
 :func:`pipeline_phase`, and stops.
 """
@@ -176,6 +181,32 @@ PNP_MARKER = 0.138         # tests/test_torch_pnp.py's scene
 PNP_DIST = np.array([-0.25, 0.08, 1.5e-3, -1.2e-3, -0.012, -0.02, 0.004, -0.001,
                      0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
 PNP_SEEDED = (171, 24)     # cameras x slots: 4104 seeded slots a case
+
+# Detect (csrc/detect.cu): float64 operations tallied from the kernel's
+# source, each +, -, x, /, sqrt, floor, min and max one.  A bilinear
+# sample 23 (the clamps 4, floors 2, fractions 2, weights 4, products 8,
+# sums 3); the edge fit a probe offset: the position 4, the two probes' 8
+# and their samples, the weight 2, the sums 6; an (edge, sample) 20 more
+# and a slot 250 for the fits and intersections; a cornerSubPix pixel in a
+# trip: the position 2, four samples, the gradients 4, the products 18, a
+# corner-trip's solve 20; a decode attempt a sample: the position 2, the
+# homography's 14, the sample, the min and max 2, the bin 4, the mean,
+# majority 2; a cell 4, Otsu 15 a bin; the dictionary: xor, popcount and
+# compare a code, counted at the int32 rate; the homography's LU 460.
+# The bound counts this run's data: valid slots, second attempts, and each
+# corner's cornerSubPix trips (the kernel returns at once from a slot that
+# is not valid).
+DETECT_OPS = dict(bilinear=23, probe=20, edge_sample=20, slot_fit=250, subpix_pixel=24,
+                  subpix_solve=20, sample=27, cell=4, otsu_bin=15, code=3, homography=460)
+# Kernel vs plain bars: ids, valid and scores identical on every output
+# slot; the corners of the kept slots within DETECT_TOL px (they differ
+# by the sum order of the fits, ~1e-12 px); every slot's within the
+# card-vs-CPU bar, since cornerSubPix on a rejected candidate's
+# ill-conditioned window moves its corners ~1e-6 px under a sum order
+# (9.8e-7 px seen in a host-C++ build of the kernel).
+DETECT_TOL = 1e-6
+DETECT_ALL_TOL = 1e-3
+DETECT_KINDS = ("apriltag", "subpix", "none")
 
 # Perception scene: the JAX package's perception-bench recipe
 # (vican_tpu/synthetic.py:273-323: f = 0.55 (W + H), the 24-marker cube of
@@ -1076,6 +1107,195 @@ def pnp_phase(dev, p_batch, ptxas: str = "") -> dict:
     return row
 
 
+def capture_detect_batch(frames, names, frame_cams) -> list:
+    """The detect program's arguments for P's first batch, as the drain
+    hands them to ``vican_torch.ops.detect.detect_candidates`` (frames,
+    quads, valid, areas, codes, n_bits, params), copied on the card."""
+    import torch
+
+    from vican_torch.ops import detect
+    from vican_torch.perception import estimate_pose_gray
+
+    seen, wrapper = [], detect.detect_candidates
+
+    def spy(*args):
+        if not seen:
+            seen.append([a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return wrapper(*args)
+
+    B = PERCEPTION_KW["batch_size"]
+    spy.launches = 0  # the wrapper counts on the module's name, the spy here
+    detect.detect_candidates = spy
+    try:
+        estimate_pose_gray(frames[:B], names[:B], frame_cams[:B], **PERCEPTION_KW)
+    finally:
+        detect.detect_candidates = wrapper
+    return seen[0]
+
+
+def _detect_gaps(out, ref) -> dict:
+    """Kernel against plain on one batch's Detections: valid, ids and
+    scores identical on every slot, the kept slots' corner gap and every
+    slot's."""
+    kept = ref.valid
+    gap = (out.corners - ref.corners).abs()
+    return dict(same_valid=bool((out.valid == ref.valid).all()),
+                same_ids=bool((out.ids == ref.ids).all()),
+                same_score=bool((out.score == ref.score).all()), kept=int(kept.sum()),
+                corners=float(gap[kept].max()) if bool(kept.any()) else 0.0,
+                corners_all=float(gap.max()) if gap.numel() else 0.0)
+
+
+def _detect_ok(gaps: dict) -> bool:
+    return (gaps["same_valid"] and gaps["same_ids"] and gaps["same_score"]
+            and gaps["corners"] <= DETECT_TOL and gaps["corners_all"] <= DETECT_ALL_TOL)
+
+
+def _subpix_trips(gray, bi, q, params) -> int:
+    """The cornerSubPix trips the corners of quads ``q`` take in
+    ``refine_corners_subpix`` (each corner until its step falls under
+    ``subpix_acc``): the kernel's trips, which freeze a stopped corner."""
+    import torch
+
+    from vican_torch.ops import detect as TD
+
+    ox, oy, w = TD._subpix_window(params.subpix_win, q.dtype, q.device)
+    cur = q.reshape(-1, 2)
+    bb = bi.repeat_interleave(4)[:, None, None]
+    move = torch.full(cur.shape[:1], torch.inf, dtype=q.dtype, device=q.device)
+    trips = 0
+    for _ in range(params.subpix_iters):
+        active = move >= params.subpix_acc
+        trips += int(active.sum())
+        if not bool(active.any()):
+            break
+        px, py = cur[:, 0, None, None] + ox, cur[:, 1, None, None] + oy
+        gx = (TD._bilinear(gray, bb, px + 1.0, py) - TD._bilinear(gray, bb, px - 1.0, py)) * 0.5
+        gy = (TD._bilinear(gray, bb, px, py + 1.0) - TD._bilinear(gray, bb, px, py - 1.0)) * 0.5
+        gxx, gxy, gyy = ((w * a * b).sum(dim=(1, 2)) for a, b in ((gx, gx), (gx, gy), (gy, gy)))
+        bx = (w * (gx * gx * px + gx * gy * py)).sum(dim=(1, 2))
+        by = (w * (gx * gy * px + gy * gy * py)).sum(dim=(1, 2))
+        det = gxx * gyy - gxy * gxy
+        den = torch.where(det == 0, 1.0, det)
+        qn = torch.stack([(gyy * bx - gxy * by) / den, (-gxy * bx + gxx * by) / den], dim=-1)
+        qn = torch.where((torch.abs(det) > 1e-9)[:, None], qn, cur)
+        step = torch.linalg.vector_norm(qn - cur, dim=-1)
+        cur = torch.where(active[:, None], qn, cur)
+        move = torch.where(active, step, move)
+    return trips
+
+
+def _detect_work(gray, quads, valid, areas, codes, n_bits, params) -> dict:
+    """What the detect kernels must do on these inputs, with this run's
+    data: the valid slots, the second decode attempts (slots the first
+    rejects, found by the plain version's first pass), cornerSubPix's
+    corner trips; the float64 and int32 operations of :data:`DETECT_OPS`,
+    and the bytes: the candidates, codes and tables read once, the
+    Detections written once, and the frame bytes under the bilinear
+    samples (4 pixels a sample, at most the frames)."""
+    import torch
+
+    from vican_torch.ops import detect as TD
+
+    B, Q = valid.shape
+    idx = valid.reshape(-1).nonzero()[:, 0]
+    bi = idx // Q
+    q = quads.reshape(-1, 4, 2)[idx].double()
+    refined = TD.refine_quad(gray, bi, q, params)
+    cells = n_bits + 2
+    Hm = TD._quad_homography(refined, cells)
+    ok1 = TD._decode_pass(gray, bi, Hm, torch.ones_like(idx, dtype=torch.bool), codes, n_bits,
+                          params, 1.0)[2]
+    n_valid, n_second = int(idx.numel()), int((~ok1).sum())
+    o = DETECT_OPS
+    S, O, side = params.refine_samples, params.refine_offsets, 2 * params.subpix_win + 1
+    samples = cells * cells * params.decode_samples ** 2
+    trips = _subpix_trips(gray, bi, q, params) if params.corner_refine == "subpix" else 0
+    refine_ops, refine_samples = {
+        "apriltag": (4 * S * (O * (o["probe"] + 2 * o["bilinear"]) + o["edge_sample"])
+                     + o["slot_fit"], 4 * S * O * 2),
+        "subpix": (0, 0), "none": (0, 0)}[params.corner_refine]
+    attempt = (samples * (o["sample"] + o["bilinear"]) + cells * cells * o["cell"]
+               + 64 * o["otsu_bin"])
+    attempts = n_valid + n_second
+    fp64 = (n_valid * (refine_ops + o["homography"]) + attempts * attempt
+            + trips * (side * side * (o["subpix_pixel"] + 4 * o["bilinear"]) + o["subpix_solve"]))
+    int32 = attempts * codes.numel() * o["code"]
+    bilinear = n_valid * refine_samples + trips * side * side * 4 + attempts * samples
+    D = min(params.max_detections, Q)
+    nbytes = (B * Q * (32 + 1 + 4) + codes.numel() * 8
+              + (S + O + side * side + 2 * params.decode_samples) * 8
+              + B * D * (64 + 8 + 1 + 4)
+              + min(4 * bilinear, gray.numel()) * gray.element_size())
+    return dict(valid_slots=n_valid, second_attempts=n_second, subpix_corner_trips=trips,
+                bilinear_samples=bilinear, fp64_ops=fp64, int32_ops=int32, bytes=nbytes)
+
+
+def detect_phase(d_batch, ptxas: str = "") -> dict:
+    """The detect kernels against ``detect_candidates_plain`` on the card,
+    on P's first batch as the drain hands it over (``d_batch``, from
+    :func:`capture_detect_batch`), at each refine kind of
+    :data:`DETECT_KINDS`: valid, ids and scores identical on every slot,
+    the kept slots' corners within :data:`DETECT_TOL` px and every slot's
+    within :data:`DETECT_ALL_TOL`, one launch a call, and no host sync (the
+    call runs under ``torch.cuda.set_sync_debug_mode("error")``).  At each
+    kind the kernels' device time (``_device_ms``) and launch time beside
+    the plain version's and the bound from :func:`_detect_work`; the ptxas
+    registers and spills of both kernels."""
+    import torch
+
+    from vican_torch.ops.detect import detect_candidates, detect_candidates_plain
+
+    gray, quads, valid, areas, codes, n_bits, params = d_batch
+    quads, valid, areas = (torch.as_tensor(x, device=gray.device) for x in (quads, valid, areas))
+    rows, faults = {}, []
+    for kind in DETECT_KINDS:
+        p = params._replace(corner_refine=kind)
+
+        def run(p=p):
+            return detect_candidates(gray, quads, valid, areas, codes, n_bits, p)
+
+        before = detect_candidates.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = detect_candidates.launches - before
+        ref = detect_candidates_plain(gray, quads, valid, areas, codes, n_bits, p)
+        gaps = _detect_gaps(out, ref)
+        if not _detect_ok(gaps) or launches != 1:
+            faults.append(f"{kind}: {launches} launches, {gaps}")
+        work = _detect_work(gray, quads, valid, areas, codes, n_bits, p)
+        t_bytes = work["bytes"] / PEAK_BYTES_S
+        t_ops = max(work["fp64_ops"] / PEAK_FP64_FLOPS, work["int32_ops"] / PEAK_INT32_OPS)
+        rows[kind] = dict(
+            kernel_ms=_device_ms(run), ms=_rate_ms(run), launch_ms=_median_ms(run),
+            plain_ms=_median_ms(lambda p=p: detect_candidates_plain(
+                gray, quads, valid, areas, codes, n_bits, p), reps=3),
+            **gaps, **work, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    resources = {k: v for k, v in _ptxas_functions(ptxas).items()
+                 if "detect_slots_kernel" in k or "dedup_kernel" in k}
+    main = rows[params.corner_refine]
+    row = dict(shape=list(quads.shape), frames=list(gray.shape), dtype=str(gray.dtype),
+               refine=params.corner_refine, kinds=rows, ptxas=resources,
+               max_abs_err=max(r["corners"] for r in rows.values()),
+               library_ms=None, library="none: no single PyTorch call computes it",
+               design="a block of 128 threads a candidate slot (refine, homography, two decode "
+                      "attempts), a block of 256 a frame (dedup, stable compaction); float64, "
+                      "--fmad=false, no host sync",
+               **{k: main[k] for k in ("kernel_ms", "ms", "launch_ms", "plain_ms", "bound_ms",
+                                       "bound_by")})
+    emit("detect_kernel", name="detect_candidates", **row)
+    if faults:
+        raise AssertionError(f"detect: {faults}")
+    return row
+
+
 def _ragged(batch):
     """A 2-frame 721 x 1283 batch from the scene's frames (edge rows and
     columns repeated): W % 8 != 0 and H % 16 != 0."""
@@ -1106,10 +1326,11 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     from vican_torch.utils import PhaseTimer
 
     timer = PhaseTimer(verbose=False, device=torch.device("cuda"))
-    pnp = _pnp_wrapper()
+    pnp, det = _pnp_wrapper(), _detect_wrapper()
     multi_threshold.launches = 0
-    if pnp is not None:
-        pnp.launches = 0
+    for wrapper in (pnp, det):
+        if wrapper is not None:
+            wrapper.launches = 0
     gate_counts = getattr(perception, "gate_counts", None)
     if gate_counts is not None:
         gate_counts.update(dict.fromkeys(gate_counts, 0))
@@ -1121,6 +1342,7 @@ def _perception_run(frames, names, frame_cams, base=PERCEPTION_KW, **kw):
     row = dict(frames=len(names), seconds=seconds, images_per_s=len(names) / seconds,
                phase_s=split, detections=len(edges), kernel_launches=launches,
                pnp_launches=None if pnp is None else pnp.launches,
+               detect_launches=None if det is None else det.launches,
                batches=-(-len(names) // base["batch_size"]),
                labeler=getattr(perception, "last_labeler", "scipy"),
                gates=getattr(perception, "last_gates", None),
@@ -1162,12 +1384,25 @@ def _host_faults(tag: str, run: dict) -> list:
     return faults
 
 
-def _pnp_faults(tag: str, run: dict) -> list:
-    """A run whose PnP did not launch the kernel once per batch (a checkout
-    without the kernel has nothing to check)."""
-    if run["pnp_launches"] is None or run["pnp_launches"] == run["batches"]:
-        return []
-    return [f"{tag}: {run['pnp_launches']} PnP launches for {run['batches']} batches"]
+def _detect_wrapper():
+    """The detect kernels' wrapper, ``vican_torch.ops.detect.
+    detect_candidates``, or None in an older checkout that detects op by
+    op (its function counts no launches)."""
+    from vican_torch.ops import detect
+
+    fn = getattr(detect, "detect_candidates", None)
+    return fn if hasattr(fn, "launches") else None
+
+
+def _launch_faults(tag: str, run: dict) -> list:
+    """A run whose PnP, or whose detect program, did not launch its kernel
+    once per batch (a checkout without the kernel has nothing to check)."""
+    faults = []
+    for what, key in (("PnP", "pnp_launches"), ("detect", "detect_launches")):
+        n = run.get(key)
+        if n is not None and n != run["batches"]:
+            faults.append(f"{tag}: {n} {what} launches for {run['batches']} batches")
+    return faults
 
 
 def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
@@ -1198,7 +1433,7 @@ def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
          upload_mb_per_batch=PERCEPTION_KW["batch_size"] * host[0].nbytes / 1e6, **run)
     if launches != n_batches:
         raise AssertionError(f"perception: {launches} threshold launches for {n_batches} batches")
-    faults = _pnp_faults("perception", run)
+    faults = _launch_faults("perception", run)
     if faults:
         raise AssertionError(faults)
     if hasattr(perception, "last_labeler") and _host_faults("perception", run):
@@ -1265,6 +1500,7 @@ def perception_phases(dev, ptxas: str = "") -> tuple[dict, tuple]:
                              f"{np.mean(r_err)} deg, {np.mean(t_err)} m")
     row["launches"] = launches
     row["pnp_launches"] = run["pnp_launches"]
+    row["detect_launches"] = run["detect_launches"]
     return row, (host, names, frame_cams, edges)
 
 
@@ -1313,7 +1549,7 @@ def perception_modes(device_run) -> None:
     for m, r in (("host", host), ("roi", roi), ("auto", auto)):
         faults += _host_faults(m, r)
     for m, r in (("host", host), ("device", again), ("roi", roi), ("auto", auto)):
-        faults += _pnp_faults(m, r)
+        faults += _launch_faults(m, r)
     for name, d in diffs.items():
         if run_to_run["identical"] and not d["identical"]:
             faults.append(f"{name}: {d} (two default runs are identical)")
@@ -1377,7 +1613,12 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
     how long the worker's ``host candidates`` ranges (the C labeler and
     gates) overlap
     the calling thread's ``PnP`` ranges, from the trace where it holds the
-    worker's ranges and from the timer's events in any case.  Three
+    worker's ranges and from the timer's events in any case.  The detect
+    program's split (``detect_split``): where it runs op by op (an older
+    checkout), ``refine_quad``, ``decode_quads`` and ``dedup_and_compact``
+    run under ``refine``, ``decode`` and ``dedup`` ranges, each with its
+    launches and seconds a batch; on the kernels, each hand kernel's
+    launches and device seconds a batch.  Three
     batches, not twelve: a batch launches ~1e4 kernels, each with its host
     operators, and the profiler's parse of a whole run's events would take
     minutes."""
@@ -1398,27 +1639,53 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
     frames, names, frame_cams = (frames[:TRACE_FRAMES], names[:TRACE_FRAMES],
                                  frame_cams[:TRACE_FRAMES])
     timer = PhaseTimer(verbose=False, trace=True, device=torch.device("cuda"))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **extra) as prof:
-        with record_function("pipelined P"):
-            t0 = time.perf_counter()
-            edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **PERCEPTION_KW)
-            seconds = time.perf_counter() - t0
+    from vican_torch.ops import detect
+
+    stages = {"refine": "refine_quad", "decode": "decode_quads", "dedup": "dedup_and_compact"}
+    plain = {n: getattr(detect, f) for n, f in stages.items()}
+
+    def ranged(name):
+        def fn(*args, **kw):
+            with record_function(name):
+                return plain[name](*args, **kw)
+        return fn
+
+    for n, f in stages.items():
+        setattr(detect, f, ranged(n))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **extra) as prof:
+            with record_function("pipelined P"):
+                t0 = time.perf_counter()
+                edges = estimate_pose_gray(frames, names, frame_cams, timer=timer,
+                                           **PERCEPTION_KW)
+                seconds = time.perf_counter() - t0
+    finally:
+        for n, f in stages.items():
+            setattr(detect, f, plain[n])
     t0 = time.perf_counter()
     summary = _trace_summary(prof, "pipelined P", "threshold")
     ranges: dict = {}
     events = prof.events()
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in ("PnP", "detect program",
-                                                          "host candidates"):
+                                                          "host candidates", *stages):
             ranges.setdefault(e.name, []).append(e)
     batches = -(-len(names) // PERCEPTION_KW["batch_size"])
     # the hand kernels launch through ctypes, outside any torch operator, so
     # the trace links none of them to a range: count them on the device's
     # timeline (the PnP kernel is launched in the PnP range alone)
     host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    hand = {n: sum(1 for e in events if e.device_type == DeviceType.CUDA
-                   and e.name not in host_names and n in e.name) / batches
-            for n in ("pnp_block_kernel", "threshold_band_kernel")}
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in host_names]
+    hand_names = ("pnp_block_kernel", "threshold_band_kernel", "detect_slots_kernel",
+                  "dedup_kernel")
+    hand = {n: sum(1 for e in device if n in e.name) / batches for n in hand_names}
+    split = {n: dict(launches=sum(_kernels_under(e) for e in ranges[n]) / batches,
+                     seconds=sum((e.time_range.end - e.time_range.start) * 1e-6
+                                 for e in ranges[n]) / batches)
+             for n in stages if n in ranges}
+    split.update({n: dict(launches=hand[n], device_seconds=sum(
+        (e.time_range.end - e.time_range.start) * 1e-6 for e in device if n in e.name) / batches)
+        for n in ("detect_slots_kernel", "dedup_kernel") if hand[n]})
     span = lambda e: (e.time_range.start * 1e-6, e.time_range.end * 1e-6)
     ranges.setdefault("host candidates", [])
     # (an in-order checkout's events have neither stage nor start)
@@ -1429,8 +1696,8 @@ def pipeline_trace(frames, names, frame_cams) -> dict:
         profile_all_threads=bool(extra), seconds=seconds, detections=len(edges),
         ranges={n: len(v) for n, v in ranges.items()},
         launches_per_batch={n: sum(_kernels_under(e) for e in v) / batches
-                            for n, v in ranges.items() if n != "host candidates"},
-        hand_kernels_per_batch=hand,
+                            for n, v in ranges.items() if n in ("PnP", "detect program")},
+        hand_kernels_per_batch=hand, detect_split=split,
         overlap_candidates_pnp_trace_s=(
             _overlap([span(e) for e in ranges["host candidates"]],
                      [span(e) for e in ranges["PnP"]])
@@ -1474,7 +1741,7 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
             faults.append(f"depth {run['depth']}: {run['kernel_launches']} launches for "
                           f"{run['batches']} batches")
         faults += _host_faults(f"depth {run['depth']}", run)
-        faults += _pnp_faults(f"depth {run['depth']}", run)
+        faults += _launch_faults(f"depth {run['depth']}", run)
     emit("pipeline", runs=runs)
 
     try:
@@ -1497,14 +1764,16 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
                     raise AssertionError(f"pipeline_files: could not write {path}")
                 files.append(path)
             write_s = time.perf_counter() - t0
-            pnp = _pnp_wrapper()
-            if pnp is not None:
-                pnp.launches = 0
+            pnp, det = _pnp_wrapper(), _detect_wrapper()
+            for wrapper in (pnp, det):
+                if wrapper is not None:
+                    wrapper.launches = 0
             t0 = time.perf_counter()
             via_files = estimate_pose_mp(files, frame_cams, brightness=0, contrast=0,
                                          marker_ids=None, **PERCEPTION_KW)
             files_s = time.perf_counter() - t0
             files_run = dict(pnp_launches=None if pnp is None else pnp.launches,
+                             detect_launches=None if det is None else det.launches,
                              batches=-(-len(files) // PERCEPTION_KW["batch_size"]))
             gray = load_images(files, grayscale=True)
             via_gray = estimate_pose_gray(gray, files, frame_cams, **PERCEPTION_KW)
@@ -1514,7 +1783,7 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
              vs_gray=diff, **files_run)
         if not diff["identical"] or len(via_files) < 10 * SCENE_FRAMES:
             faults.append(f"files: {len(via_files)} detections, {diff}")
-        faults += _pnp_faults("files", files_run)
+        faults += _launch_faults("files", files_run)
     if faults:
         raise AssertionError(f"pipeline: {faults}")
     trace = pipeline_trace(frames, names, frame_cams)
@@ -1525,6 +1794,13 @@ def pipeline_phase(frames, names, frame_cams, device_edges=None) -> None:
                      + trace["hand_kernels_per_batch"]["pnp_block_kernel"])
     if _pnp_wrapper() is not None and not pnp_per_batch <= 8:
         raise AssertionError(f"pipeline_trace: {pnp_per_batch} PnP launches a batch")
+    # the two detect kernels a batch and the torch operators' kernels
+    # around them, where ~556 launches ran before the kernels
+    detect_per_batch = (trace["launches_per_batch"].get("detect program", 0)
+                        + trace["hand_kernels_per_batch"]["detect_slots_kernel"]
+                        + trace["hand_kernels_per_batch"]["dedup_kernel"])
+    if _detect_wrapper() is not None and not detect_per_batch <= 10:
+        raise AssertionError(f"pipeline_trace: {detect_per_batch} detect launches a batch")
 
 
 PURE_FRAMES = 64  # P's first two batches
@@ -1563,7 +1839,7 @@ def save_pure_frames(device_run, path: str) -> None:
                         pure_keys=keys(pure), pure_corners=np.stack([v["corners"] for v in pure.values()]))
 
 
-def pure_phase(device_run) -> tuple[int, int]:
+def pure_phase(device_run) -> tuple[int, int, int]:
     """The ``pure`` mode on the scene's first :data:`PURE_FRAMES` frames:
     the threshold kernel once per batch, then the components, candidates
     and re-fit on the card.  Against the ``device`` run on those frames it
@@ -1572,8 +1848,8 @@ def pure_phase(device_run) -> tuple[int, int]:
     gap within 2e-3 px, twice the card-vs-CPU bar, of
     :data:`JAX_PURE_VS_DEVICE_PX`), and its first 8 frames on the CPU must
     give the card's keys with corners within 1e-3 px.  Prints images/s, the
-    phase split and the peak memory.  Returns the threshold and PnP
-    kernels' launches."""
+    phase split and the peak memory.  Returns the threshold, PnP and
+    detect kernels' launches."""
     import torch
 
     frames, names, frame_cams, device_edges = device_run
@@ -1599,7 +1875,7 @@ def pure_phase(device_run) -> tuple[int, int]:
     faults = []
     if run["kernel_launches"] != run["batches"]:
         faults.append(f"{run['kernel_launches']} threshold launches for {run['batches']} batches")
-    faults += _pnp_faults("pure", run)
+    faults += _launch_faults("pure", run)
     if len(edges) < 10 * (n // 8):
         faults.append(f"only {len(edges)} detections")
     pure_only, device_only = set(edges) - set(device_first), set(device_first) - set(edges)
@@ -1611,7 +1887,7 @@ def pure_phase(device_run) -> tuple[int, int]:
         faults.append(f"against the CPU: keys {set(cpu) ^ set(card8)}, corners {d_cpu} px")
     if faults:
         raise AssertionError(f"pure: {faults}")
-    return run["kernel_launches"], run["pnp_launches"]
+    return run["kernel_launches"], run["pnp_launches"], run["detect_launches"]
 
 
 def _perception_run_cpu(frames, names, frame_cams, **kw):
@@ -1731,7 +2007,7 @@ def mesh_perception(mesh) -> dict:
                                                  MESH_PERCEPTION_STEPS)[3:]
     host = frames.cpu().numpy()
     del frames
-    pnp = _pnp_wrapper()
+    pnp, det = _pnp_wrapper(), _detect_wrapper()
     kw = dict(brightness=0, contrast=0, marker_ids=None, **PERCEPTION_KW)
     with tempfile.TemporaryDirectory() as tmp:
         files = []
@@ -1741,19 +2017,20 @@ def mesh_perception(mesh) -> dict:
             if not cv2.imwrite(path, img):
                 raise AssertionError(f"mesh: could not write {path}")
             files.append(path)
-        pnp.launches = 0
+        pnp.launches = det.launches = 0
         t0 = time.perf_counter()
         sharded = estimate_pose_mp(files, frame_cams, mesh=mesh, **kw)
         seconds = time.perf_counter() - t0
-        launches = pnp.launches
+        launches, detect_launches = pnp.launches, det.launches
         labeler, gates = perception.last_labeler, perception.last_gates
         single = estimate_pose_mp(files, frame_cams, **kw)
     return dict(ran=True, frames=len(names), seconds=seconds, detections=len(sharded),
                 batches=-(-len(names) // PERCEPTION_KW["batch_size"]), pnp_launches=launches,
-                labeler=labeler, gates=gates, vs_single=_edge_diff(single, sharded))
+                detect_launches=detect_launches, labeler=labeler, gates=gates,
+                vs_single=_edge_diff(single, sharded))
 
 
-def mesh_phase() -> tuple[int, int]:
+def mesh_phase() -> tuple[int, int, int]:
     """Phase ``mesh``: :func:`mesh_child` in a process of its own, under its
     own timeout, so the process group ends with it.  Fails when a float64
     gap passes :data:`MESH_ROT_TOL_DEG` / :data:`MESH_TRANS_TOL_M` or the
@@ -1763,8 +2040,9 @@ def mesh_phase() -> tuple[int, int]:
     the mesh's; the JAX package gates its mesh parity in float64 for the
     same reason, __graft_entry__.py:104-112).  Perception with ``mesh=``
     (:func:`mesh_perception`) must give ``mesh=None``'s edges, identical,
-    with one PnP launch a batch.  Returns the sharded float32 run's
-    ``pwr_apply`` launches and the perception run's PnP launches."""
+    with one PnP and one detect launch a batch.  Returns the sharded
+    float32 run's ``pwr_apply`` launches and the perception run's PnP and
+    detect launches."""
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
@@ -1785,14 +2063,14 @@ def mesh_phase() -> tuple[int, int]:
         faults.append("the sharded route never launched pwr_apply")
     per = out["perception"]
     if per["ran"]:
-        faults += _pnp_faults("perception", per) + _host_faults("perception", per)
+        faults += _launch_faults("perception", per) + _host_faults("perception", per)
         if not per["vs_single"]["identical"] or per["detections"] < 10 * MESH_PERCEPTION_STEPS:
             faults.append(f"perception: {per['detections']} detections, {per['vs_single']}")
     if (out["backend"], out["world"]) != ("nccl", 1):
         faults.append(f"backend {out['backend']}, world {out['world']}")
     if faults:
         raise AssertionError(f"mesh: {faults}")
-    return launches, per.get("pnp_launches")
+    return launches, per.get("pnp_launches"), per.get("detect_launches")
 
 
 def _tutorial_capture(cams: dict, traj: dict, markers: dict, dev):
@@ -1828,7 +2106,7 @@ def _tutorial_capture(cams: dict, traj: dict, markers: dict, dev):
     return gray, names, frame_cams, render_s, preprocess_s
 
 
-def tutorial_phase(dev) -> tuple[int, int]:
+def tutorial_phase(dev) -> tuple[int, int, int]:
     """Phase T: examples/tutorial.py's flow on the card at half the
     reference captures' scale, with its hyperparameters.  Both captures
     are rendered on the card; the cube is calibrated from its capture (float64), the
@@ -1836,10 +2114,10 @@ def tutorial_phase(dev) -> tuple[int, int]:
     result is evaluated against ground truth (cell 9).  Fails unless all 24
     markers calibrate, the cameras come within 1 degree and 10 cm on
     average (tests/test_tutorial.py's bars), the threshold kernel launched
-    once per batch and the PnP kernel once per batch, the first 8 room
+    once per batch and the PnP and detect kernels once per batch, the first 8 room
     frames on the CPU give the same detections, and the room's edge dict
     survives ``save_edges`` / ``load_edges`` unchanged.  Returns T's
-    launches of the threshold kernel and of the PnP kernel."""
+    launches of the threshold, PnP and detect kernels."""
     import tempfile
 
     import torch
@@ -1912,6 +2190,7 @@ def tutorial_phase(dev) -> tuple[int, int]:
          cameras=len(report.valid_cam_ids), summary=summary, report=str(report).splitlines())
     launches = cube_run["kernel_launches"] + room_run["kernel_launches"]
     pnp_launches = cube_run["pnp_launches"] + room_run["pnp_launches"]
+    detect_launches = cube_run["detect_launches"] + room_run["detect_launches"]
     peak = torch.cuda.max_memory_allocated()
     batches = cube_run["batches"] + room_run["batches"]
 
@@ -1932,13 +2211,15 @@ def tutorial_phase(dev) -> tuple[int, int]:
         and back[k]["reprojected_err"] == v["reprojected_err"]
         and back[k]["im_filename"] == v["im_filename"] for k, v in cam_marker_edges.items())
     emit("tutorial", seconds=time.perf_counter() - t_start, kernel_launches=launches,
-         pnp_launches=pnp_launches, batches=batches, max_memory_allocated=peak, cpu_frames=8,
+         pnp_launches=pnp_launches, detect_launches=detect_launches, batches=batches,
+         max_memory_allocated=peak, cpu_frames=8,
          detections_cpu=len(cpu), detections_card=len(first), same_keys=set(cpu) == set(first),
          max_corner_diff_px=d_corner, save_load_identical=round_trip)
     faults = []
     if launches < batches:
         faults.append(f"{launches} threshold launches for {batches} batches")
-    faults += _pnp_faults("T", dict(pnp_launches=pnp_launches, batches=batches))
+    faults += _launch_faults("T", dict(pnp_launches=pnp_launches, detect_launches=detect_launches,
+                                    batches=batches))
     faults += _host_faults("cube", cube_run) + _host_faults("room", room_run)
     if not (summary["SO3_deg"]["avg"] < 1.0 and summary["E3_cm"]["avg"] < 10.0):
         faults.append(f"camera errors {summary['SO3_deg']['avg']} deg, "
@@ -1951,7 +2232,7 @@ def tutorial_phase(dev) -> tuple[int, int]:
         faults.append("save_edges / load_edges changed the edge dict")
     if faults:
         raise AssertionError(f"tutorial: {faults}")
-    return launches, pnp_launches
+    return launches, pnp_launches, detect_launches
 
 
 def _build_native(only_present: bool = False) -> list:
@@ -2001,8 +2282,8 @@ def main() -> None:
     # without pnp.cu builds the threshold kernel alone); --mesh's child
     # runs the solver and perception
     partial = any(a in sys.argv for a in ("--threshold", "--perception", "--tutorial", "--pure",
-                                          "--pipeline", "--pnp"))
-    perception_kernels = [k for k in ("threshold", "pnp") if k in _kernels.SOURCES]
+                                          "--pipeline", "--pnp", "--detect"))
+    perception_kernels = [k for k in ("threshold", "pnp", "detect") if k in _kernels.SOURCES]
     t0 = time.perf_counter()
     logs = _kernels.build(["threshold"] if "--threshold" in sys.argv
                           else perception_kernels if partial
@@ -2010,6 +2291,7 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     ptxas = logs.get("threshold", {}).get("ptxas", "")
     pnp_ptxas = logs.get("pnp", {}).get("ptxas", "")
+    detect_ptxas = logs.get("detect", {}).get("ptxas", "")
     if "--threshold" in sys.argv:
         emit("build", seconds=build_s,
              kernels={k: _ptxas_summary(v["ptxas"]) for k, v in logs.items()})
@@ -2030,6 +2312,10 @@ def main() -> None:
     if "--pnp" in sys.argv:
         frames, names, frame_cams = perception_scene(dev, 32 // 8)[3:]
         pnp_phase(dev, capture_pnp_batch(frames.cpu().numpy(), names, frame_cams), pnp_ptxas)
+        return
+    if "--detect" in sys.argv:
+        frames, names, frame_cams = perception_scene(dev, 32 // 8)[3:]
+        detect_phase(capture_detect_batch(frames.cpu().numpy(), names, frame_cams), detect_ptxas)
         return
     if "--mesh" in sys.argv:
         mesh_phase()
@@ -2129,15 +2415,16 @@ def main() -> None:
 
     d = config_d_phase(dev)
     torch.cuda.empty_cache()
-    launches_mesh, pnp_mesh = mesh_phase()
+    launches_mesh, pnp_mesh, detect_mesh = mesh_phase()
 
     th, device_run = perception_phases(dev, ptxas)
     pnp = pnp_phase(dev, capture_pnp_batch(*device_run[:3]), pnp_ptxas)
+    det = detect_phase(capture_detect_batch(*device_run[:3]), detect_ptxas)
     perception_modes(device_run)
     pipeline_phase(*device_run)
-    launches_pure, pnp_pure = pure_phase(device_run)
+    launches_pure, pnp_pure, detect_pure = pure_phase(device_run)
     del device_run
-    launches_t, pnp_t = tutorial_phase(dev)
+    launches_t, pnp_t, detect_t = tutorial_phase(dev)
 
     w10 = rows["B", 10]
     kernels = [{
@@ -2180,6 +2467,14 @@ def main() -> None:
         **{k: pnp[k] for k in ("ms", "kernel_ms", "launch_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "shape", "valid_slots", "method",
                                "design", "one_slot_kernel_ms")},
+    }, {
+        "name": "detect_candidates", "route": "cuda", "source": "vican_torch/csrc/detect.cu",
+        "replaces": "vican_tpu/perception.py:939",
+        "launches": th["detect_launches"], "launches_pure": detect_pure, "launches_T": detect_t,
+        "launches_mesh": detect_mesh, "max_abs_err": det["max_abs_err"],
+        **{k: det[k] for k in ("ms", "kernel_ms", "launch_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "shape", "refine", "design")},
+        "kinds_kernel_ms": {k: v["kernel_ms"] for k, v in det["kinds"].items()},
     }]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)

@@ -294,3 +294,83 @@ def test_hand_built_case(name, monkeypatch):
         assert out[1][0, 0] and OUTLINE_AREA < perim64
     if name == "unfused_winding":
         assert out[0][0, 0].tolist() == UNFUSED_QUAD
+
+
+def _gated_batch(packed, H, W, threads):
+    """``quad_candidates_gated_batch`` over ``threads`` threads: ``((quads,
+    valid, areas), counters)``."""
+    B, Wn, _, Wb = packed.shape
+    quads = np.empty((B, Wn * KS, 4, 2), np.float32)
+    areas = np.empty((B, Wn * KS), np.float32)
+    valid = np.empty((B, Wn * KS), bool)
+    stats = np.empty(len(TP.GATE_COUNTS), np.int64)
+    tnative.get_fastccl().quad_candidates_gated_batch(
+        np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, P.min_area,
+        P.max_area_rate * H * W, P.border_margin, 4.0 * max(P.win_sizes), quads, areas, valid,
+        stats, threads)
+    return (quads, valid, areas), dict(zip(TP.GATE_COUNTS, stats.tolist()))
+
+
+THREADS = (1, 2, 3, 8)  # 3 does not divide P's 224 masks a batch, 8 not the rendered 42
+
+
+def _assert_threads_agree(packed, H, W, monkeypatch):
+    """The gated batch entry at every thread count of :data:`THREADS`: the
+    one-thread bytes and counters, which are the numpy gates' on the
+    labeler's slots.  Returns the one-thread counters."""
+    one, counts = _gated_batch(packed, H, W, 1)
+    ref, refits = _numpy_gates(packed, H, W, _labeled(packed, H, W), monkeypatch)
+    _assert_bytes(one, ref, "numpy")
+    _assert_counts_agree(counts, refits)
+    for threads in THREADS[1:]:
+        out, c = _gated_batch(packed, H, W, threads)
+        _assert_bytes(out, one, f"{threads} threads")
+        assert c == counts, threads
+    return counts
+
+
+def test_threaded_batch_equals_one_thread(masks, monkeypatch):
+    """Rendered masks (6 frames x 7 windows): the same bytes and re-fit
+    counts over 1, 2, 3 and 8 threads, and those of the numpy gates."""
+    packed, H, W = masks
+    counts = _assert_threads_agree(packed, H, W, monkeypatch)
+    assert counts["refits"] >= 10 and counts["accepted"] >= 1
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_threaded_batch_on_hand_built_mask(name, monkeypatch):
+    """Each hand-built mask, six copies as a (2, 3) batch so that threads
+    label copies at once: the same bytes and counts over 1, 2, 3 and 8
+    threads, the numpy gates' on the labeler's slots, and every copy the
+    same as the first."""
+    fg = CASES[name]()[0]
+    H, W = fg.shape
+    packed = np.ascontiguousarray(np.broadcast_to(_pack(fg), (2, 3, H, -(-W // 8))))
+    _assert_threads_agree(packed, H, W, monkeypatch)
+    out = _gated_batch(packed, H, W, 8)[0]
+    for a in out:
+        rows = a.reshape(6, KS, -1)
+        assert (rows == rows[:1]).all(), name
+
+
+def test_threads_follow_the_affinity(masks, monkeypatch):
+    """Perception hands the labeler as many threads as the process may run
+    on, at most one a mask, and no setting changes that."""
+    packed, H, W = masks
+    monkeypatch.setattr(TP, "gate_counts", dict.fromkeys(TP.GATE_COUNTS, 0))
+    monkeypatch.setattr(TP.os, "sched_getaffinity", lambda pid: {0, 2, 5})
+    assert TP._host_threads(224) == 3 and TP._host_threads(2) == 2 and TP._host_threads(0) == 1
+    ccl = tnative.get_fastccl()
+    seen = []
+    entry = ccl.quad_candidates_gated_batch
+
+    def spy(*args):
+        seen.append(args[-1])
+        return entry(*args)
+
+    monkeypatch.setattr(ccl, "quad_candidates_gated_batch", spy)
+    out = TP.quads_from_packed_masks(packed, H, W, P)
+    assert seen == [3]
+    _assert_bytes(out, _gated_batch(packed, H, W, 1)[0], "perception")
+    with pytest.raises(ValueError, match="threads"):
+        _gated_batch(packed, H, W, 0)

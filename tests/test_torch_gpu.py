@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PNP_MARKER, PNP_MEDIAN_TOL, PNP_TOL, _pnp_gaps, pnp_slots
+from chip_smoke import (PNP_MARKER, PNP_MEDIAN_TOL, PNP_TOL, _detect_gaps, _detect_ok,
+                        _pnp_gaps, pnp_slots)
 from vican_torch import bipgo, render
 from vican_torch.cam import Camera
 from vican_torch.geometry import distance_SO3
@@ -647,3 +648,107 @@ def test_phase_sync_waits_for_the_card(cuda):
         torch.cuda._sleep(200_000_000)
         out["sync"] = {"x": [x]}
     assert all(e["seconds"] > 0.05 for e in timer.events), timer.events
+
+
+def _detect_inputs(cuda, frames, params):
+    """A batch's detect inputs as the feed hands them to the drain: the
+    threshold kernel's masks, the C labeler's gated candidates moved to the
+    card, the dictionary's codes."""
+    from vican_torch import perception
+    from vican_torch.ops import detect as D
+    from vican_torch.ops.dictionary import marker_bits_table
+
+    H, W = frames.shape[1:]
+    packed = multi_threshold(frames, params.win_sizes, params.thresh_const).cpu().numpy()
+    cands = perception.quads_from_packed_masks(packed, H, W, params)
+    quads, valid, areas = (torch.as_tensor(c).to(cuda) for c in cands)
+    return quads, valid, areas, D.dictionary_codes(marker_bits_table("DICT_4X4_1000"), cuda)
+
+
+def _marker_grid(n: int) -> np.ndarray:
+    """A 1280x720 frame of ``n`` (at most 40) axis-aligned 60 px markers of
+    DICT_4X4_1000 on white, 8 a row: all of one area, so the dedup's ties
+    decide their order, and more than 24 of them decode."""
+    from vican_torch.ops.dictionary import get_dictionary
+
+    bits, nb = get_dictionary("DICT_4X4_1000")
+    img = np.full((720, 1280), 255, np.uint8)
+    for k in range(n):
+        r, c = divmod(k, 8)
+        tile = np.zeros((nb + 2, nb + 2), np.uint8)
+        tile[1:-1, 1:-1] = np.asarray(bits[3 * k + 5]).reshape(nb, nb) * 255
+        img[40 + 130 * r:100 + 130 * r, 40 + 150 * c:100 + 150 * c] = np.kron(
+            tile, np.ones((10, 10), np.uint8))
+    return img
+
+
+def _assert_detect_matches_plain(frames, quads, valid, areas, codes, params):
+    """One launch of the detect kernels against ``detect_candidates_plain``
+    on the same card tensors, at chip_smoke.py's bars: valid, ids and
+    scores identical on every slot, the kept corners within DETECT_TOL px.
+    Returns the gaps (printed: the max corner gap is the report)."""
+    from vican_torch.ops import detect as D
+
+    before = D.detect_candidates.launches
+    out = D.detect_candidates(frames, quads, valid, areas, codes, 4, params)
+    torch.cuda.synchronize()
+    assert D.detect_candidates.launches == before + 1
+    ref = D.detect_candidates_plain(frames, quads, valid, areas, codes, 4, params)
+    gaps = _detect_gaps(out, ref)
+    print(params.corner_refine, gaps)
+    assert _detect_ok(gaps), gaps
+    return gaps, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", ["apriltag", "subpix", "none"])
+@pytest.mark.parametrize("pad", [0, 3], ids=["W=640", "W=643"])
+def test_detect_kernels_match_plain(cuda, refine, pad):
+    """The detect kernels (csrc/detect.cu) against the plain version on six
+    rendered frames at each refine kind, at the frames' width and a ragged
+    one, twice bit for bit; float32 frames, which the kernel does not
+    take, raise."""
+    from vican_torch.ops import detect as D
+
+    frames = _rendered_640(cuda, 2, 7, pad)[0]
+    params = D.resolve_error_correction(D.DetectorParams(corner_refine=refine), "DICT_4X4_1000")
+    args = _detect_inputs(cuda, frames, params)
+    gaps, out = _assert_detect_matches_plain(frames, *args, params)
+    assert gaps["kept"] > 10
+    again = D.detect_candidates(frames, *args, 4, params)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    with pytest.raises(ValueError, match="uint8"):
+        D.detect_candidates(frames.float(), *args, 4, params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["no_valid_slot", "equal_areas", "over_24_survivors"])
+def test_detect_kernels_edge_cases_match_plain(cuda, case):
+    """A batch with no valid slot (every output slot empty), a batch whose
+    candidates all have one area (the dedup's order by index), and a frame
+    of 40 markers of which more than 24 survive (the compaction's cut),
+    each at every refine kind."""
+    from vican_torch.ops import detect as D
+
+    params = D.resolve_error_correction(D.DetectorParams(), "DICT_4X4_1000")
+    if case == "over_24_survivors":
+        frames = torch.from_numpy(np.stack([_marker_grid(40), _marker_grid(33)])).to(cuda)
+    else:
+        frames = _rendered_640(cuda, 2, 7)[0]
+    quads, valid, areas, codes = _detect_inputs(cuda, frames, params)
+    if case == "no_valid_slot":
+        valid = torch.zeros_like(valid)
+    elif case == "equal_areas":
+        areas = torch.full_like(areas, 400.0)
+    for refine in ("apriltag", "subpix", "none"):
+        p = params._replace(corner_refine=refine)
+        gaps, out = _assert_detect_matches_plain(frames, quads, valid, areas, codes, p)
+        if case == "no_valid_slot":
+            assert gaps["kept"] == 0 and not out.ids.any() and not out.corners.any()
+        if case == "over_24_survivors":
+            assert bool(out.valid[0].all())
+            wide = D.detect_candidates_plain(frames, quads, valid, areas, codes, 4,
+                                             p._replace(max_detections=100))
+            assert int(wide.valid[0].sum()) > 24
+        else:
+            assert gaps["kept"] > 10 or case == "no_valid_slot"

@@ -42,7 +42,14 @@ SOURCES = {
     "mv": {"thin_mv_bf16": [*[_P] * 5, *[_I] * 9, _P], "thin_mv_occupancy": [_I]},
     # corners, ids, valid, Ks, dists, out; slots, D, lm_iters, method; marker_size
     "pnp": {"pnp_block_f64": [*[_P] * 6, *[_I] * 4, _D, _P]},
+    # gray, the candidates, codes, tables, slot scratch, Detections; 16 sizes
+    # and counts; subpix_acc, refine_clamp_px, min_cell_contrast; the
+    # float32 dedup_radius_rate
+    "detect": {"detect_candidates_f64": [*[_P] * 13, *[_I] * 15, _D, _D, _D, _F, _P]},
 }
+# flags of one source beside NVCC_FLAGS: detect.cu rounds every product
+# as the plain version's separate torch ops do, so nothing is fused
+SOURCE_FLAGS = {"detect": ("--fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -68,7 +75,7 @@ def _paths(name: str) -> tuple[str, str]:
                               if f.endswith(".cuh"))]:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     return src, os.path.join(BUILD, f"{name}_{h.hexdigest()[:12]}.so")
 
 
@@ -84,7 +91,7 @@ def build(names=None) -> dict[str, dict]:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running[name] = (proc, tmp, out, time.perf_counter())

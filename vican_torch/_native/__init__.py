@@ -44,10 +44,10 @@ def _build(name: str) -> str | None:
     import numpy as np
 
     src = os.path.join(_HERE, f"{name}.c")
-    # -march=native: the .so is built on the host that runs it; the flags
-    # and every header here (fastccl.c includes quad_gates.h) are part of
-    # the name
-    flags = ["-O3", "-march=native"]
+    # -march=native: the .so is built on the host that runs it; -pthread:
+    # fastccl.c spreads a batch over threads; the flags and every header
+    # here (fastccl.c includes quad_gates.h) are part of the name
+    flags = ["-O3", "-march=native", "-pthread"]
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in [src, *sorted(glob.glob(os.path.join(_HERE, "*.h")))]:
         with open(path, "rb") as f:

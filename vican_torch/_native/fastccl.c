@@ -41,13 +41,15 @@
  * Added here: the candidates' winding, gates and degenerate re-fit
  * (quad_gates.h, included below the labeler and compiled without
  * floating-point contraction), as quad_candidates_gated_batch() (labeler
- * and gates, a batch in one call) and gate_candidates_batch() (the gates
- * on given slots); tests/test_torch_gates.py holds them to the numpy
- * gates.
+ * and gates, a batch in one call, its (frame, window) masks spread over
+ * the threads the caller names) and gate_candidates_batch() (the gates
+ * on given slots, one thread); tests/test_torch_gates.py holds them to
+ * the numpy gates.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 #include <math.h>
+#include <pthread.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
@@ -534,9 +536,54 @@ static const char *gated_args_error(Py_ssize_t B, Py_ssize_t Wn, Py_ssize_t H, P
     return NULL;
 }
 
+/* The labeler and gates of quad_candidates_gated_batch over the batch's
+ * B*Wn (frame, window) masks, shared by its threads: each takes the next
+ * mask from `next` and writes only that mask's output rows, so the bytes
+ * are the same whatever the thread count and order. */
+typedef struct {
+    const uint8_t *im;
+    Py_ssize_t masks, H, W, Wb, K, K2, next;
+    double max_area;
+    const GateParams *gp;
+    float *quads, *areas;
+    uint8_t *valid;
+    int failed;
+} GatedBatch;
+
+typedef struct {
+    GatedBatch *job;
+    int64_t stats[GS_N]; /* this thread's re-fit counters */
+    int rc;
+} GatedWorker;
+
+static void *gated_worker(void *arg) {
+    GatedWorker *w = (GatedWorker *)arg;
+    GatedBatch *job = w->job;
+    const Py_ssize_t Ks = job->K + job->K2;
+    int32_t *areas_i = (int32_t *)malloc((size_t)Ks * sizeof(int32_t) + 1);
+    w->rc = areas_i ? 0 : -1;
+    while (!w->rc && !__atomic_load_n(&job->failed, __ATOMIC_RELAXED)) {
+        const Py_ssize_t m = __atomic_fetch_add(&job->next, 1, __ATOMIC_RELAXED);
+        if (m >= job->masks) break;
+        const uint8_t *mask = job->im + (size_t)m * job->H * job->Wb;
+        float *quads = job->quads + (size_t)m * Ks * 8;
+        int n8, n4;
+        w->rc = qc_core(mask, job->H, job->W, job->Wb, job->K, job->K2, job->gp->min_area,
+                        job->max_area, quads, areas_i, &n8, &n4);
+        if (!w->rc)
+            w->rc = gate_window(mask, job->Wb, job->gp, job->K, Ks, n8, n4, quads, areas_i,
+                                job->areas + (size_t)m * Ks, job->valid + (size_t)m * Ks,
+                                w->stats);
+    }
+    if (w->rc) __atomic_store_n(&job->failed, 1, __ATOMIC_RELAXED);
+    free(areas_i);
+    return NULL;
+}
+
 /* quad_candidates_gated_batch(packed, B, Wn, H, W, Wb, K, K2, min_area,
  *                             max_area, border_margin, min_hollow_side,
- *                             quads_out, areas_out, valid_out, stats_out)
+ *                             quads_out, areas_out, valid_out, stats_out,
+ *                             threads)
  *   packed: contiguous bit-packed (B, Wn, H, Wb) masks (the layout of
  *   qc_core); the outputs are writable contiguous buffers that the call
  *   fills: quads float32 (B, Wn*(K+K2), 4, 2), areas float32
@@ -545,42 +592,55 @@ static const char *gated_args_error(Py_ssize_t B, Py_ssize_t Wn, Py_ssize_t H, P
  * Each (frame, window) is labeled as quad_candidates_batch labels it, then
  * wound, gated and re-fit as vican_torch/perception.py's _gated_candidates
  * does it (quad_gates.h), byte for byte: the whole of perception's host
- * candidates for a batch in ONE call with the GIL released.  Returns None.
+ * candidates for a batch in ONE call with the GIL released.  The masks
+ * are spread over min(threads, B*Wn) threads (the calling one among
+ * them), each with its own scratch and counters; the counters are summed
+ * in thread order after the join.  A thread that cannot start leaves its
+ * share to the others.  Returns None.
  */
 static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
     Py_buffer fg, q_out, a_out, v_out, s_out;
-    Py_ssize_t B, Wn, H, W, Wb, K, K2;
+    Py_ssize_t B, Wn, H, W, Wb, K, K2, threads;
     GateParams gp;
     double max_area;
-    if (!PyArg_ParseTuple(args, "y*nnnnnnnddddw*w*w*w*", &fg, &B, &Wn, &H, &W, &Wb, &K, &K2,
+    if (!PyArg_ParseTuple(args, "y*nnnnnnnddddw*w*w*w*n", &fg, &B, &Wn, &H, &W, &Wb, &K, &K2,
                           &gp.min_area, &max_area, &gp.border_margin, &gp.min_hollow_side,
-                          &q_out, &a_out, &v_out, &s_out))
+                          &q_out, &a_out, &v_out, &s_out, &threads))
         return NULL;
     const char *err = gated_args_error(B, Wn, H, W, Wb, K, K2, &fg, &q_out, &a_out, &v_out,
                                        &s_out);
+    if (!err && threads < 1)
+        err = "threads must be at least 1";
     int rc = 0;
     if (!err) {
-        const Py_ssize_t Ks = K + K2;
-        const uint8_t *im = (const uint8_t *)fg.buf;
-        float *quads = (float *)q_out.buf, *areas = (float *)a_out.buf;
-        uint8_t *valid = (uint8_t *)v_out.buf;
-        int64_t *stats = (int64_t *)s_out.buf;
         gp.H = H;
         gp.W = W;
+        GatedBatch job = {(const uint8_t *)fg.buf, B * Wn, H, W, Wb, K, K2, 0, max_area, &gp,
+                          (float *)q_out.buf, (float *)a_out.buf, (uint8_t *)v_out.buf, 0};
+        int64_t *stats = (int64_t *)s_out.buf;
+        const Py_ssize_t nt = threads < job.masks ? threads : (job.masks > 0 ? job.masks : 1);
         Py_BEGIN_ALLOW_THREADS
-        int32_t *areas_i = (int32_t *)malloc((size_t)Ks * sizeof(int32_t) + 1);
-        rc = areas_i ? 0 : -1;
-        memset(stats, 0, GS_N * sizeof(int64_t));
-        for (Py_ssize_t m = 0; m < B * Wn && !rc; m++) {
-            const uint8_t *mask = im + (size_t)m * H * Wb;
-            int n8, n4;
-            rc = qc_core(mask, H, W, Wb, K, K2, gp.min_area, max_area,
-                         quads + (size_t)m * Ks * 8, areas_i, &n8, &n4);
-            if (!rc)
-                rc = gate_window(mask, Wb, &gp, K, Ks, n8, n4, quads + (size_t)m * Ks * 8,
-                                 areas_i, areas + (size_t)m * Ks, valid + (size_t)m * Ks, stats);
+        GatedWorker *workers = (GatedWorker *)calloc((size_t)nt, sizeof(GatedWorker));
+        pthread_t *tids = (pthread_t *)calloc((size_t)nt, sizeof(pthread_t));
+        char *started = (char *)calloc((size_t)nt, 1);
+        if (!workers || !tids || !started) {
+            rc = -1;
+        } else {
+            for (Py_ssize_t t = 0; t < nt; t++) workers[t].job = &job;
+            for (Py_ssize_t t = 1; t < nt; t++)
+                started[t] = pthread_create(&tids[t], NULL, gated_worker, &workers[t]) == 0;
+            gated_worker(&workers[0]);
+            for (Py_ssize_t t = 1; t < nt; t++)
+                if (started[t]) pthread_join(tids[t], NULL);
+            memset(stats, 0, GS_N * sizeof(int64_t));
+            for (Py_ssize_t t = 0; t < nt; t++) {
+                rc |= workers[t].rc;
+                for (int k = 0; k < GS_N; k++) stats[k] += workers[t].stats[k];
+            }
         }
-        free(areas_i);
+        free(workers);
+        free(tids);
+        free(started);
         Py_END_ALLOW_THREADS
     }
     PyBuffer_Release(&fg);
@@ -662,7 +722,7 @@ static PyMethodDef methods[] = {
     {"quad_candidates_batch", quad_candidates_batch, METH_VARARGS,
      "quad_candidates_packed2 over a (B, Wn, H, Wb) batch in one call, into buffers."},
     {"quad_candidates_gated_batch", quad_candidates_gated_batch, METH_VARARGS,
-     "quad_candidates_batch, then the winding, gates and re-fits, in one call."},
+     "quad_candidates_batch, then the winding, gates and re-fits, in one call over threads."},
     {"gate_candidates_batch", gate_candidates_batch, METH_VARARGS,
      "The winding, gates and re-fits of quad_candidates_gated_batch on given slots."},
     {NULL, NULL, 0, NULL},

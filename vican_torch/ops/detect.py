@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _kernels
 from .pnp import homography_4pt
 from .threshold import adaptive_threshold
 
@@ -68,6 +69,7 @@ __all__ = [
     "refit_degenerate_quads",
     "device_candidates",
     "detect_candidates",
+    "detect_candidates_plain",
     "detect_markers",
     "refine_corners",
     "refine_corners_subpix",
@@ -668,16 +670,35 @@ def _dominant_direction(a, b, c):
     return torch.where((n > 0)[..., None], v / torch.clamp_min(n, 1e-300)[..., None], fallback)
 
 
+def _edge_probes(S: int, O: int, dt, dev):
+    """The edge fit's sample positions along an edge (``S`` in [0.12,
+    0.88]) and its probe offsets along the normal (``O`` in px)."""
+    return (torch.linspace(0.12, 0.88, S, dtype=dt, device=dev),
+            torch.linspace(-(O // 2), O // 2, O, dtype=dt, device=dev))
+
+
+def _subpix_window(win: int, dt, dev):
+    """cornerSubPix's window offsets ``(ox, oy)`` and Gaussian weights
+    ``w``, each ``(2 win + 1, 2 win + 1)`` (row = y offset)."""
+    dx = torch.arange(-win, win + 1, dtype=dt, device=dev)
+    oy, ox = torch.meshgrid(dx, dx, indexing="ij")
+    return ox, oy, torch.exp(-((ox / win) ** 2)) * torch.exp(-((oy / win) ** 2))
+
+
+def _decode_positions(S: int, frac: float, dt, dev):
+    """The ``S`` bit-sample positions across a cell, over its central
+    ``frac``, in cell units."""
+    return ((torch.arange(S, dtype=dt, device=dev) + 0.5) / S) * frac + (1.0 - frac) * 0.5
+
+
 def refine_corners(gray, bi, quads, params: DetectorParams):
     """Subpixel corners by gradient-weighted edge line fits (AprilTag style,
     CORNER_REFINE_APRILTAG, cam.py:130): for each edge, probe the gradient
     along the normal at ``refine_samples`` points and ``refine_offsets``
     offsets, fit a weighted total-least-squares line through the per-sample
     centroids, intersect adjacent lines.  ``quads (N, 4, 2)``."""
-    S, O = params.refine_samples, params.refine_offsets
-    dt, dev = quads.dtype, quads.device
-    ts = torch.linspace(0.12, 0.88, S, dtype=dt, device=dev)
-    offs = torch.linspace(-(O // 2), O // 2, O, dtype=dt, device=dev)
+    S = params.refine_samples
+    ts, offs = _edge_probes(S, params.refine_offsets, quads.dtype, quads.device)
     a = quads
     b = torch.roll(quads, -1, dims=1)
     d = b - a  # (N, 4, 2)
@@ -728,11 +749,8 @@ def refine_corners_subpix(gray, bi, quads, params: DetectorParams):
     under ``subpix_acc`` or ``subpix_iters`` trips.  The JAX package stops
     each corner in a ``while_loop``; here all corners step together and a
     corner that has stopped is frozen, which gives the same result."""
-    win = params.subpix_win
     dt, dev = quads.dtype, quads.device
-    dx = torch.arange(-win, win + 1, dtype=dt, device=dev)
-    oy, ox = torch.meshgrid(dx, dx, indexing="ij")
-    w = torch.exp(-((ox / win) ** 2)) * torch.exp(-((oy / win) ** 2))
+    ox, oy, w = _subpix_window(params.subpix_win, dt, dev)
     q0 = quads.reshape(-1, 2)
     bb = bi.repeat_interleave(4)[:, None, None]
     q = q0
@@ -827,7 +845,7 @@ def _decode_attempt(gray, bi, Hm, n_bits, params, frac):
     cells = n_bits + 2
     S = params.decode_samples
     dt, dev = Hm.dtype, Hm.device
-    lin = ((torch.arange(S, dtype=dt, device=dev) + 0.5) / S) * frac + (1.0 - frac) * 0.5
+    lin = _decode_positions(S, frac, dt, dev)
     ar = torch.arange(cells, dtype=dt, device=dev)
     # samples[n, r, c, s, t] sit at cell coords (u, v) = (c + lin[t], r + lin[s])
     u = (ar[None, :, None, None] + lin[None, None, None, :]).expand(cells, cells, S, S)
@@ -844,6 +862,35 @@ def _decode_attempt(gray, bi, Hm, n_bits, params, frac):
     return 2 * above > S * S, means
 
 
+def _decode_bars(params: DetectorParams, n_bits: int) -> tuple[int, int]:
+    """The decode's bars: the erroneous border bits tolerated and the
+    Hamming budget of the dictionary match."""
+    ec_bits = params.error_correction_bits if params.error_correction_bits is not None else 0
+    return math.floor(params.max_border_err_rate * (4 * (n_bits + 2) - 4)), ec_bits
+
+
+def _decode_pass(gray, bi, Hm, valid, codes, n_bits: int, params: DetectorParams, frac: float):
+    """One pass of :func:`decode_quads` through homographies ``Hm (N, 3,
+    3)``, its bit samples over the central ``frac`` of each cell, with its
+    border, contrast and dictionary gates: ``(ids, rotations, ok)``."""
+    cells = n_bits + 2
+    dev = Hm.device
+    max_border_errs, ec_bits = _decode_bars(params, n_bits)
+    border = torch.ones((cells, cells), dtype=torch.bool, device=dev)
+    border[1:-1, 1:-1] = False
+    weights = torch.bitwise_left_shift(torch.ones((), dtype=torch.int64, device=dev),
+                                       torch.arange(n_bits * n_bits, device=dev))
+    bits, means = _decode_attempt(gray, bi, Hm, n_bits, params, frac)
+    border_ok = (bits & border).sum(dim=(1, 2)) <= max_border_errs
+    contrast_ok = (means.amax(dim=(1, 2)) - means.amin(dim=(1, 2))) > params.min_cell_contrast
+    word = (bits[:, 1:-1, 1:-1].reshape(-1, n_bits * n_bits).long() * weights).sum(-1)
+    dists = _popcount(word[:, None] ^ codes[None, :])  # (N, size * 4)
+    best = torch.argmin(dists, dim=1)
+    best_dist = torch.gather(dists, 1, best[:, None])[:, 0]
+    ok = valid & border_ok & contrast_ok & (best_dist <= ec_bits)
+    return best // 4, best % 4, ok
+
+
 def decode_quads(gray, bi, quads, valid, codes, n_bits: int, params: DetectorParams):
     """Sample each quad's bit grid and match it against the dictionary
     (``vican_tpu.ops.detect.decode_one`` for every quad at once; each quad
@@ -856,29 +903,9 @@ def decode_quads(gray, bi, quads, valid, codes, n_bits: int, params: DetectorPar
     distances as the JAX package's elementwise compare.  Returns ``(ids,
     rotations, corners (N, 4, 2) rolled so index 0 is the canonical
     top-left, ok)``."""
-    cells = n_bits + 2
-    ec_bits = params.error_correction_bits if params.error_correction_bits is not None else 0
-    border = torch.ones((cells, cells), dtype=torch.bool, device=quads.device)
-    border[1:-1, 1:-1] = False
-    max_border_errs = math.floor(params.max_border_err_rate * (4 * cells - 4))
-    Hm = _quad_homography(quads, cells)
-    weights = torch.bitwise_left_shift(
-        torch.ones((), dtype=torch.int64, device=quads.device),
-        torch.arange(n_bits * n_bits, device=quads.device))
-
-    def attempt(frac):
-        bits, means = _decode_attempt(gray, bi, Hm, n_bits, params, frac)
-        border_ok = (bits & border).sum(dim=(1, 2)) <= max_border_errs
-        contrast_ok = (means.amax(dim=(1, 2)) - means.amin(dim=(1, 2))) > params.min_cell_contrast
-        word = (bits[:, 1:-1, 1:-1].reshape(-1, n_bits * n_bits).long() * weights).sum(-1)
-        dists = _popcount(word[:, None] ^ codes[None, :])  # (N, size * 4)
-        best = torch.argmin(dists, dim=1)
-        best_dist = torch.gather(dists, 1, best[:, None])[:, 0]
-        ok = valid & border_ok & contrast_ok & (best_dist <= ec_bits)
-        return best // 4, best % 4, ok
-
-    id1, rot1, ok1 = attempt(1.0)
-    id2, rot2, ok2 = attempt(0.5)
+    Hm = _quad_homography(quads, n_bits + 2)
+    id1, rot1, ok1 = _decode_pass(gray, bi, Hm, valid, codes, n_bits, params, 1.0)
+    id2, rot2, ok2 = _decode_pass(gray, bi, Hm, valid, codes, n_bits, params, 0.5)
     ids = torch.where(ok1, id1, id2)
     rots = torch.where(ok1, rot1, rot2)
     idx = (torch.arange(4, device=quads.device)[None, :] + rots[:, None]) % 4
@@ -919,27 +946,134 @@ def dedup_and_compact(corners, ids, ok, area, params: DetectorParams) -> Detecti
     )
 
 
-def detect_candidates(gray, quads, valid, areas, codes, n_bits: int, params: DetectorParams):
-    """Refine, decode and deduplicate quad candidates over their frames:
-    ``gray (B, H, W)`` float32 on the device, ``quads (B, Q, 4, 2)``,
-    ``valid (B, Q)``, ``areas (B, Q)`` (the dedup score), each a tensor on
-    any device or a numpy array; ``codes``: :func:`dictionary_codes`.
-    Only the valid slots are refined and decoded: the others can neither be
-    kept nor suppress a kept one.  Returns :class:`Detections` ``(B, D)``."""
+def detect_candidates_plain(gray, quads, valid, areas, codes, n_bits: int,
+                            params: DetectorParams) -> Detections:
+    """The plain version of :func:`detect_candidates`, op by op: only the
+    valid slots are refined and decoded (a ``nonzero`` picks them, a host
+    sync on the card), since the others can neither be kept nor suppress a
+    kept one.  ``gray`` may be uint8 or float32: its values are cast to
+    the coordinates' float64 either way."""
     dev = gray.device
     B, Q = valid.shape
     q = torch.as_tensor(quads).to(dev, torch.float64).reshape(B * Q, 4, 2)
     area = torch.as_tensor(areas).to(dev)
     idx = torch.as_tensor(valid).to(dev).reshape(-1).nonzero()[:, 0]
-    bi = idx // Q
-    refined = refine_quad(gray, bi, q[idx], params)
-    ids_v, _, corners_v, ok_v = decode_quads(
-        gray, bi, refined, torch.ones_like(idx, dtype=torch.bool), codes, n_bits, params)
-    corners = torch.zeros_like(q).index_copy_(0, idx, corners_v)
-    ids = torch.zeros(B * Q, dtype=torch.int64, device=dev).index_copy_(0, idx, ids_v)
-    ok = torch.zeros(B * Q, dtype=torch.bool, device=dev).index_copy_(0, idx, ok_v)
+    corners = torch.zeros_like(q)
+    ids = torch.zeros(B * Q, dtype=torch.int64, device=dev)
+    ok = torch.zeros(B * Q, dtype=torch.bool, device=dev)
+    if idx.numel():  # a batch without candidates has nothing to sample
+        bi = idx // Q
+        refined = refine_quad(gray, bi, q[idx], params)
+        ids_v, _, corners_v, ok_v = decode_quads(
+            gray, bi, refined, torch.ones_like(idx, dtype=torch.bool), codes, n_bits, params)
+        corners.index_copy_(0, idx, corners_v)
+        ids.index_copy_(0, idx, ids_v)
+        ok.index_copy_(0, idx, ok_v)
     return dedup_and_compact(corners.reshape(B, Q, 4, 2), ids.reshape(B, Q),
                              ok.reshape(B, Q), area, params)
+
+
+# detect.cu's refine codes
+REFINE_KINDS = {"none": 0, "apriltag": 1, "subpix": 2}
+_tables: dict = {}
+
+
+def detect_tables(params: DetectorParams, device) -> torch.Tensor:
+    """detect.cu's float64 tables on ``device``, made by the plain
+    version's own expressions there (so both read the same values): the
+    edge fit's sample positions and probe offsets, the cornerSubPix
+    weights (row-major), then the decode's sample positions over whole
+    cells and over their central half.  Made once a device and shape."""
+    key = (params.refine_samples, params.refine_offsets, params.subpix_win,
+           params.decode_samples, torch.device(device))
+    tab = _tables.get(key)
+    if tab is None:
+        dt = torch.float64
+        ts, offs = _edge_probes(params.refine_samples, params.refine_offsets, dt, device)
+        w = _subpix_window(params.subpix_win, dt, device)[2]
+        S = params.decode_samples
+        tab = torch.cat([ts, offs, w.reshape(-1), _decode_positions(S, 1.0, dt, device),
+                         _decode_positions(S, 0.5, dt, device)])
+        _tables[key] = tab
+    return tab
+
+
+def _detect_inputs(gray, quads, valid, areas, codes, params: DetectorParams):
+    """:func:`detect_candidates`' inputs on ``gray``'s device, checked:
+    numpy arrays are moved there, a tensor on another device raises, as
+    does a dtype or shape the kernel does not take."""
+    if not isinstance(gray, torch.Tensor) or gray.dim() != 3 or gray.dtype != torch.uint8:
+        raise ValueError("detect_candidates: gray must be a (B, H, W) uint8 tensor")
+    dev = gray.device
+    B = gray.shape[0]
+    args = {"quads": quads, "valid": valid, "areas": areas, "codes": codes}
+    for name, x in args.items():
+        if isinstance(x, torch.Tensor):
+            if x.device != dev:
+                raise ValueError(f"detect_candidates: {name} is on {x.device}, gray on {dev}")
+        else:
+            args[name] = torch.as_tensor(np.asarray(x), device=dev)
+    Q = args["valid"].shape[-1] if args["valid"].dim() == 2 else -1
+    want = {"quads": (torch.float32, (B, Q, 4, 2)), "valid": (torch.bool, (B, Q)),
+            "areas": (torch.float32, (B, Q)), "codes": (torch.int64, (args["codes"].numel(),))}
+    for name, (dtype, shape) in want.items():
+        x = args[name]
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"detect_candidates: {name} must be a {dtype} {shape} tensor, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+    if params.corner_refine not in REFINE_KINDS:
+        raise ValueError(f"unknown corner_refine kind: {params.corner_refine!r}")
+    return args["quads"], args["valid"], args["areas"], args["codes"]
+
+
+def detect_candidates(gray, quads, valid, areas, codes, n_bits: int,
+                      params: DetectorParams) -> Detections:
+    """Refine, decode and deduplicate quad candidates over their frames:
+    ``gray (B, H, W)`` uint8 on the device, ``quads (B, Q, 4, 2)``
+    float32, ``valid (B, Q)`` bool and ``areas (B, Q)`` float32 (the dedup
+    score), each a tensor on ``gray``'s device or a numpy array (moved
+    there); ``codes``: :func:`dictionary_codes`.  Returns
+    :class:`Detections` ``(B, D)`` with ``D = min(max_detections, Q)``.
+
+    CPU tensors take :func:`detect_candidates_plain`.  CUDA tensors launch
+    the kernels of ``vican_torch/csrc/detect.cu`` (a block a candidate
+    slot: refine, by ``params.corner_refine``, and decode in float64; a
+    block a frame: dedup and compaction), no host sync, or raise (the C
+    entry refuses sizes past its shared memory); each launch adds one to
+    ``detect_candidates.launches``.
+    """
+    quads, valid, areas, codes = _detect_inputs(gray, quads, valid, areas, codes, params)
+    if not gray.is_cuda:
+        return detect_candidates_plain(gray, quads, valid, areas, codes, n_bits, params)
+    B, H, W = gray.shape
+    Q = valid.shape[1]
+    D = min(params.max_detections, Q)
+    dev = gray.device
+    corners = torch.empty((B, D, 4, 2), dtype=torch.float64, device=dev)
+    ids = torch.empty((B, D), dtype=torch.int64, device=dev)
+    keep = torch.empty((B, D), dtype=torch.bool, device=dev)
+    score = torch.empty((B, D), dtype=torch.float32, device=dev)
+    if B * Q:
+        # each slot's refined, rolled corners, id and decode verdict
+        slot_corners = torch.empty((B * Q, 4, 2), dtype=torch.float64, device=dev)
+        slot_ids = torch.empty(B * Q, dtype=torch.int64, device=dev)
+        slot_ok = torch.empty(B * Q, dtype=torch.bool, device=dev)
+        _kernels.launch(
+            "detect", "detect_candidates_f64", gray.contiguous(), quads.contiguous(),
+            valid.contiguous(),
+            areas.contiguous(), codes.contiguous(), detect_tables(params, dev), slot_corners,
+            slot_ids, slot_ok, corners, ids, keep, score,
+            B, H, W, Q, D, REFINE_KINDS[params.corner_refine],
+            params.refine_samples, params.refine_offsets, params.subpix_win,
+            params.subpix_iters, n_bits, params.decode_samples, *_decode_bars(params, n_bits),
+            codes.numel(),
+            float(params.subpix_acc), float(params.refine_clamp_px),
+            float(params.min_cell_contrast), float(params.dedup_radius_rate))
+        detect_candidates.launches += 1
+    return Detections(corners, ids, keep, score)
+
+
+detect_candidates.launches = 0
 
 
 def detect_markers(gray, table, n_bits: int, params: DetectorParams, device=None) -> Detections:
@@ -966,5 +1100,5 @@ def detect_markers(gray, table, n_bits: int, params: DetectorParams, device=None
     codes = dictionary_codes(np.asarray(table), device)
     fg = unpack_masks(multi_threshold(g8, params.win_sizes, params.thresh_const), g8.shape[-1])
     quads, valid, area = device_candidates(fg, params)
-    det = detect_candidates(g8.to(torch.float32), quads, valid, area, codes, n_bits, params)
+    det = detect_candidates(g8, quads, valid, area, codes, n_bits, params)
     return Detections(*(x[0] for x in det)) if single else det

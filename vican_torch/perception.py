@@ -469,12 +469,19 @@ def _candidates_scipy(fg: np.ndarray, K: int, K2: int, min_area, max_area):
     return corners.tobytes(), areas_out.tobytes(), nkeep8, nkeep4
 
 
+def _host_threads(masks: int) -> int:
+    """The threads the C labeler spreads ``masks`` (frame, window) masks
+    over: the cores this process may run on, at most one a mask."""
+    return max(1, min(len(os.sched_getaffinity(0)), masks))
+
+
 def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params):
     """The C labeler, winding, gates and re-fit on bit-packed
     ``(B, Wn, >=H, ceil(W/8))`` masks, every (frame, window) in ONE call
     that releases the GIL (``fastccl.quad_candidates_gated_batch``, byte for
     byte :func:`_gated_candidates` on the slots of
-    ``fastccl.quad_candidates_batch``): ``(quads, valid, areas)`` as
+    ``fastccl.quad_candidates_batch``), its masks spread over
+    :func:`_host_threads` threads: ``(quads, valid, areas)`` as
     :func:`quads_from_masks` returns them.  Adds its re-fit branches to
     :data:`gate_counts`."""
     B, Wn, _, Wb = packed.shape
@@ -486,7 +493,7 @@ def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params):
     ccl.quad_candidates_gated_batch(
         np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, params.min_area,
         params.max_area_rate * H * W, params.border_margin, _min_hollow_side(params),
-        quads, areas, valid, stats)
+        quads, areas, valid, stats, _host_threads(B * Wn))
     for name, n in zip(GATE_COUNTS, stats.tolist()):
         gate_counts[name] += n
     return quads, valid, areas
@@ -702,9 +709,10 @@ class _Fed:
     """One batch as the feed stage hands it to the drain: the meta data of
     its frames, the frames ``g`` on the device, the cameras' intrinsics and
     distortions on the device, ``candidates`` (``(quads, valid, areas)``:
-    the host modes' gated numpy arrays, the ``pure`` mode's tensors on the
-    device), and ``ready``, a CUDA event on the feed's stream after its last
-    device work (None on the CPU)."""
+    tensors on the card, which the host modes' gated arrays are moved to
+    on the feed; on the CPU, the host modes' numpy arrays), and ``ready``,
+    a CUDA event on the feed's stream after its last device work (None on
+    the CPU)."""
 
     files: list
     cams: list
@@ -773,7 +781,8 @@ class _Program:
         """The feed stage of one batch (uint8 gray ``(B, H, W)`` as given):
         upload, threshold, and the host candidates
         (:func:`quads_from_packed_masks`: labeler, winding, gates and
-        re-fit; the host modes) or the device candidates (``pure``).  On the
+        re-fit, then on the card their upload; the host modes) or the
+        device candidates (``pure``).  On the
         card it runs on the caller's current stream, the feed's own
         (:func:`_edges`).
 
@@ -809,6 +818,11 @@ class _Program:
                     packed = host_threshold(host, p)
             with timer.phase("host candidates", stage="feed"):
                 candidates = quads_from_packed_masks(packed, H, W, p)
+                if g.is_cuda:
+                    # on the feed's stream, which the masks' fetch left
+                    # idle: the drain's detect program then waits on
+                    # nothing but the feed's event
+                    candidates = tuple(torch.as_tensor(c).to(dev) for c in candidates)
         ready = None
         if g.is_cuda:
             ready = torch.cuda.Event()
@@ -833,8 +847,8 @@ class _Program:
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     t.record_stream(stream)
         with timer.phase("detect program", stage="drain"):
-            det = D_.detect_candidates(fed.g.to(torch.float32), *fed.candidates,
-                                       self.codes, self.n_bits, self.params)
+            det = D_.detect_candidates(fed.g, *fed.candidates, self.codes, self.n_bits,
+                                       self.params)
         with timer.phase("PnP", stage="drain"):
             out = _pnp_block(det, fed.Ks, fed.dists, self.marker_size, self.lm_iters,
                              self.pnp_method)
