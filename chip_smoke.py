@@ -1185,6 +1185,37 @@ def _subpix_trips(gray, bi, q, params) -> int:
     return trips
 
 
+def _first_attempts(gray, quads, valid, codes, n_bits, params):
+    """The valid slots' flat indices and whether each passes its first
+    decode attempt, by the plain version's refine and first pass."""
+    import torch
+
+    from vican_torch.ops import detect as TD
+
+    Q = valid.shape[1]
+    idx = valid.reshape(-1).nonzero()[:, 0]
+    bi = idx // Q
+    refined = TD.refine_quad(gray, bi, quads.reshape(-1, 4, 2)[idx].double(), params)
+    Hm = TD._quad_homography(refined, n_bits + 2)
+    ok1 = TD._decode_pass(gray, bi, Hm, torch.ones_like(idx, dtype=torch.bool), codes, n_bits,
+                          params, 1.0)[2]
+    return idx, ok1
+
+
+def _one_slot_batches(gray, quads, valid, codes, n_bits, params) -> dict:
+    """The batch with one valid slot left: the first valid slot whose first
+    decode attempt passes, and the first that takes the second."""
+    import torch
+
+    idx, ok1 = _first_attempts(gray, quads, valid, codes, n_bits, params)
+    batches = {}
+    for case, pick in (("first_attempt", ok1), ("second_attempt", ~ok1)):
+        one = torch.zeros_like(valid)
+        one.view(-1)[idx[pick.nonzero()[0, 0]]] = True
+        batches[case] = one
+    return batches
+
+
 def _detect_work(gray, quads, valid, areas, codes, n_bits, params) -> dict:
     """What the detect kernels must do on these inputs, with this run's
     data: the valid slots, the second decode attempts (slots the first
@@ -1193,19 +1224,11 @@ def _detect_work(gray, quads, valid, areas, codes, n_bits, params) -> dict:
     and the bytes: the candidates, codes and tables read once, the
     Detections written once, and the frame bytes under the bilinear
     samples (4 pixels a sample, at most the frames)."""
-    import torch
-
-    from vican_torch.ops import detect as TD
-
     B, Q = valid.shape
-    idx = valid.reshape(-1).nonzero()[:, 0]
+    idx, ok1 = _first_attempts(gray, quads, valid, codes, n_bits, params)
     bi = idx // Q
     q = quads.reshape(-1, 4, 2)[idx].double()
-    refined = TD.refine_quad(gray, bi, q, params)
     cells = n_bits + 2
-    Hm = TD._quad_homography(refined, cells)
-    ok1 = TD._decode_pass(gray, bi, Hm, torch.ones_like(idx, dtype=torch.bool), codes, n_bits,
-                          params, 1.0)[2]
     n_valid, n_second = int(idx.numel()), int((~ok1).sum())
     o = DETECT_OPS
     S, O, side = params.refine_samples, params.refine_offsets, 2 * params.subpix_win + 1
@@ -1231,6 +1254,24 @@ def _detect_work(gray, quads, valid, areas, codes, n_bits, params) -> dict:
                 bilinear_samples=bilinear, fp64_ops=fp64, int32_ops=int32, bytes=nbytes)
 
 
+def _detect_split(fn) -> dict:
+    """Device ms a call of each detect kernel ``fn`` launches."""
+    return {k: ms for name, ms in _kernel_split(fn).items()
+            for k in ("detect_slots_kernel", "dedup_kernel") if k in name}
+
+
+def _source_title(name: str) -> str:
+    """The first sentence of this checkout's ``vican_torch/csrc/<name>.cu``
+    header: its kernels and their layout (the design a run timed)."""
+    with open(os.path.join(REPO, "vican_torch", "csrc", f"{name}.cu")) as f:
+        head = []
+        for line in f:
+            head.append(line.strip().lstrip("/").strip())
+            if head[-1].endswith("."):
+                break
+    return " ".join(head)
+
+
 def detect_phase(d_batch, ptxas: str = "") -> dict:
     """The detect kernels against ``detect_candidates_plain`` on the card,
     on P's first batch as the drain hands it over (``d_batch``, from
@@ -1239,9 +1280,14 @@ def detect_phase(d_batch, ptxas: str = "") -> dict:
     the kept slots' corners within :data:`DETECT_TOL` px and every slot's
     within :data:`DETECT_ALL_TOL`, one launch a call, and no host sync (the
     call runs under ``torch.cuda.set_sync_debug_mode("error")``).  At each
-    kind the kernels' device time (``_device_ms``) and launch time beside
-    the plain version's and the bound from :func:`_detect_work`; the ptxas
-    registers and spills of both kernels."""
+    kind the kernels' device time (``_device_ms``), back-to-back rate and
+    launch time beside the plain version's and the bound from
+    :func:`_detect_work`, and each kernel's device time (``_detect_split``);
+    at the batch's own kind, its device time with one valid slot left, one
+    that passes its first decode attempt and one that takes the second
+    (:func:`_one_slot_batches`: one slot's chain, the latency floor); the
+    ptxas registers, stack and spills of both kernels.  Runs in an older
+    checkout too (``design`` is its detect.cu's title)."""
     import torch
 
     from vican_torch.ops.detect import detect_candidates, detect_candidates_plain
@@ -1275,21 +1321,23 @@ def detect_phase(d_batch, ptxas: str = "") -> dict:
             kernel_ms=_device_ms(run), ms=_rate_ms(run), launch_ms=_median_ms(run),
             plain_ms=_median_ms(lambda p=p: detect_candidates_plain(
                 gray, quads, valid, areas, codes, n_bits, p), reps=3),
-            **gaps, **work, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
+            split=_detect_split(run), **gaps, **work, bytes_ms=t_bytes * 1e3,
+            ops_ms=t_ops * 1e3, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    one_slot = {case: _device_ms(lambda one=one: detect_candidates(
+        gray, quads, one, areas, codes, n_bits, params))
+        for case, one in _one_slot_batches(gray, quads, valid, codes, n_bits, params).items()}
     resources = {k: v for k, v in _ptxas_functions(ptxas).items()
                  if "detect_slots_kernel" in k or "dedup_kernel" in k}
     main = rows[params.corner_refine]
     row = dict(shape=list(quads.shape), frames=list(gray.shape), dtype=str(gray.dtype),
                refine=params.corner_refine, kinds=rows, ptxas=resources,
+               one_slot_kernel_ms=one_slot,
                max_abs_err=max(r["corners"] for r in rows.values()),
                library_ms=None, library="none: no single PyTorch call computes it",
-               design="a block of 128 threads a candidate slot (refine, homography, two decode "
-                      "attempts), a block of 256 a frame (dedup, stable compaction); float64, "
-                      "--fmad=false, no host sync",
+               design=_source_title("detect") + " Float64, --fmad=false, no host sync.",
                **{k: main[k] for k in ("kernel_ms", "ms", "launch_ms", "plain_ms", "bound_ms",
-                                       "bound_by")})
+                                       "bound_by", "split")})
     emit("detect_kernel", name="detect_candidates", **row)
     if faults:
         raise AssertionError(f"detect: {faults}")
@@ -2473,7 +2521,8 @@ def main() -> None:
         "launches": th["detect_launches"], "launches_pure": detect_pure, "launches_T": detect_t,
         "launches_mesh": detect_mesh, "max_abs_err": det["max_abs_err"],
         **{k: det[k] for k in ("ms", "kernel_ms", "launch_ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms", "shape", "refine", "design")},
+                               "bound_by", "library_ms", "shape", "refine", "design", "split",
+                               "one_slot_kernel_ms")},
         "kinds_kernel_ms": {k: v["kernel_ms"] for k, v in det["kinds"].items()},
     }]
     emit("done", seconds=time.perf_counter() - t_start)

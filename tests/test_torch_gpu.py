@@ -409,9 +409,10 @@ def test_detect_and_draw_on_the_card(cuda, tmp_path, capsys):
     np.testing.assert_array_equal(card, cpu)
 
 
-def _rendered_640(cuda, timesteps, seed, pad=0):
-    """The cube seen by three cameras at 640x360 (``pad`` replicated columns
-    more), rendered on the card: ``(frames, names, frame_cams)``."""
+def _rendered_640(cuda, timesteps, seed, pad=0, aruco="DICT_4X4_1000"):
+    """The cube of ``aruco`` markers seen by three cameras at 640x360
+    (``pad`` replicated columns more), rendered on the card: ``(frames,
+    names, frame_cams)``."""
     import torch.nn.functional as F
 
     K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
@@ -420,8 +421,8 @@ def _rendered_640(cuda, timesteps, seed, pad=0):
                            resolution_x=640, resolution_y=360)
             for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
     frames, names, frame_cams = render.render_frames(
-        cams, render.cube_trajectory(timesteps, seed=seed), render.make_cube_markers(),
-        marker_size=0.138, device=cuda)
+        cams, render.cube_trajectory(timesteps, seed=seed), render.make_cube_markers(aruco),
+        aruco, marker_size=0.138, device=cuda)
     frames = F.pad(frames.float(), (0, pad), mode="replicate").to(torch.uint8).contiguous()
     return frames, names, frame_cams
 
@@ -650,10 +651,10 @@ def test_phase_sync_waits_for_the_card(cuda):
     assert all(e["seconds"] > 0.05 for e in timer.events), timer.events
 
 
-def _detect_inputs(cuda, frames, params):
+def _detect_inputs(cuda, frames, params, aruco="DICT_4X4_1000"):
     """A batch's detect inputs as the feed hands them to the drain: the
     threshold kernel's masks, the C labeler's gated candidates moved to the
-    card, the dictionary's codes."""
+    card, the ``aruco`` dictionary's codes."""
     from vican_torch import perception
     from vican_torch.ops import detect as D
     from vican_torch.ops.dictionary import marker_bits_table
@@ -662,7 +663,7 @@ def _detect_inputs(cuda, frames, params):
     packed = multi_threshold(frames, params.win_sizes, params.thresh_const).cpu().numpy()
     cands = perception.quads_from_packed_masks(packed, H, W, params)
     quads, valid, areas = (torch.as_tensor(c).to(cuda) for c in cands)
-    return quads, valid, areas, D.dictionary_codes(marker_bits_table("DICT_4X4_1000"), cuda)
+    return quads, valid, areas, D.dictionary_codes(marker_bits_table(aruco), cuda)
 
 
 def _marker_grid(n: int) -> np.ndarray:
@@ -682,7 +683,7 @@ def _marker_grid(n: int) -> np.ndarray:
     return img
 
 
-def _assert_detect_matches_plain(frames, quads, valid, areas, codes, params):
+def _assert_detect_matches_plain(frames, quads, valid, areas, codes, params, n_bits=4):
     """One launch of the detect kernels against ``detect_candidates_plain``
     on the same card tensors, at chip_smoke.py's bars: valid, ids and
     scores identical on every slot, the kept corners within DETECT_TOL px.
@@ -690,10 +691,10 @@ def _assert_detect_matches_plain(frames, quads, valid, areas, codes, params):
     from vican_torch.ops import detect as D
 
     before = D.detect_candidates.launches
-    out = D.detect_candidates(frames, quads, valid, areas, codes, 4, params)
+    out = D.detect_candidates(frames, quads, valid, areas, codes, n_bits, params)
     torch.cuda.synchronize()
     assert D.detect_candidates.launches == before + 1
-    ref = D.detect_candidates_plain(frames, quads, valid, areas, codes, 4, params)
+    ref = D.detect_candidates_plain(frames, quads, valid, areas, codes, n_bits, params)
     gaps = _detect_gaps(out, ref)
     print(params.corner_refine, gaps)
     assert _detect_ok(gaps), gaps
@@ -752,3 +753,62 @@ def test_detect_kernels_edge_cases_match_plain(cuda, case):
             assert int(wide.valid[0].sum()) > 24
         else:
             assert gaps["kept"] > 10 or case == "no_valid_slot"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples", [5, 9])
+def test_detect_kernels_7x7_match_plain(cuda, samples):
+    """DICT_7X7_1000 markers at every refine kind: 81 cells of
+    ``samples``^2 samples a slot, the largest code the C entry takes; at 9
+    samples a cell a slot's warp holds 6561 samples and their bins (~53 KB
+    of shared memory, past 48 KB: the opt-in)."""
+    from vican_torch.ops import detect as D
+
+    aruco = "DICT_7X7_1000"
+    frames = _rendered_640(cuda, 1, 7, aruco=aruco)[0]
+    params = D.resolve_error_correction(D.DetectorParams(decode_samples=samples), aruco)
+    quads, valid, areas, codes = _detect_inputs(cuda, frames, params, aruco)
+    assert bool(valid.any())
+    for refine in ("apriltag", "subpix", "none"):
+        _assert_detect_matches_plain(frames, quads, valid, areas, codes,
+                                     params._replace(corner_refine=refine), n_bits=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["q_161", "one_valid_slot", "flat_slot"])
+def test_detect_warp_design_edges_match_plain(cuda, case):
+    """The warp design's edges at every refine kind: 3 frames of Q = 161
+    slots (``max_candidates=15``; 483 slots, an odd grid), a batch with one
+    valid slot, and a valid slot over a flat patch of a frame (every sample
+    in one bin, the span clamped to 1e-6, Otsu's first argmax, the contrast
+    gate failed)."""
+    from vican_torch.ops import detect as D
+
+    params = D.resolve_error_correction(D.DetectorParams(), "DICT_4X4_1000")
+    frames = _rendered_640(cuda, 2, 7)[0]
+    if case == "q_161":
+        frames = frames[:3].contiguous()
+        params = params._replace(max_candidates=15)
+    quads, valid, areas, codes = _detect_inputs(cuda, frames, params)
+    if case == "q_161":
+        assert tuple(valid.shape) == (3, 161)
+    elif case == "one_valid_slot":
+        first = int(valid.reshape(-1).nonzero()[0, 0])
+        valid = torch.zeros_like(valid)
+        valid.view(-1)[first] = True
+    else:
+        frames = frames.clone()
+        frames[0, 20:100, 20:100] = 128
+        j = int(valid[0].nonzero()[0, 0])
+        quads[0, j] = torch.tensor([[30.0, 30.0], [90.0, 30.0], [90.0, 90.0], [30.0, 90.0]],
+                                   device=cuda)
+    for refine in ("apriltag", "subpix", "none"):
+        p = params._replace(corner_refine=refine)
+        gaps, out = _assert_detect_matches_plain(frames, quads, valid, areas, codes, p)
+        if case == "one_valid_slot":
+            assert gaps["kept"] <= 1
+        elif case == "flat_slot":  # and the flat slot alone: not kept
+            alone = torch.zeros_like(valid)
+            alone[0, j] = True
+            gaps, _ = _assert_detect_matches_plain(frames, quads, alone, areas, codes, p)
+            assert gaps["kept"] == 0

@@ -998,6 +998,19 @@ def detect_tables(params: DetectorParams, device) -> torch.Tensor:
     return tab
 
 
+def detect_scalars(params: DetectorParams, n_bits: int, B: int, H: int, W: int, Q: int,
+                   ncodes: int) -> list:
+    """The C entry ``detect_candidates_f64``'s arguments after its pointers,
+    in its order: the sizes and counts, then the float64 bars and the
+    float32 dedup rate (as Python floats: ``_kernels.SOURCES`` names their
+    C types)."""
+    return [B, H, W, Q, min(params.max_detections, Q), REFINE_KINDS[params.corner_refine],
+            params.refine_samples, params.refine_offsets, params.subpix_win,
+            params.subpix_iters, n_bits, params.decode_samples, *_decode_bars(params, n_bits),
+            ncodes, float(params.subpix_acc), float(params.refine_clamp_px),
+            float(params.min_cell_contrast), float(params.dedup_radius_rate)]
+
+
 def _detect_inputs(gray, quads, valid, areas, codes, params: DetectorParams):
     """:func:`detect_candidates`' inputs on ``gray``'s device, checked:
     numpy arrays are moved there, a tensor on another device raises, as
@@ -1036,11 +1049,11 @@ def detect_candidates(gray, quads, valid, areas, codes, n_bits: int,
     :class:`Detections` ``(B, D)`` with ``D = min(max_detections, Q)``.
 
     CPU tensors take :func:`detect_candidates_plain`.  CUDA tensors launch
-    the kernels of ``vican_torch/csrc/detect.cu`` (a block a candidate
+    the kernels of ``vican_torch/csrc/detect.cu`` (a warp a candidate
     slot: refine, by ``params.corner_refine``, and decode in float64; a
-    block a frame: dedup and compaction), no host sync, or raise (the C
-    entry refuses sizes past its shared memory); each launch adds one to
-    ``detect_candidates.launches``.
+    block a frame, a warp a slot: dedup and compaction), no host sync, or
+    raise (the C entry refuses sizes past the card's shared memory); each
+    launch adds one to ``detect_candidates.launches``.
     """
     quads, valid, areas, codes = _detect_inputs(gray, quads, valid, areas, codes, params)
     if not gray.is_cuda:
@@ -1063,12 +1076,7 @@ def detect_candidates(gray, quads, valid, areas, codes, n_bits: int,
             valid.contiguous(),
             areas.contiguous(), codes.contiguous(), detect_tables(params, dev), slot_corners,
             slot_ids, slot_ok, corners, ids, keep, score,
-            B, H, W, Q, D, REFINE_KINDS[params.corner_refine],
-            params.refine_samples, params.refine_offsets, params.subpix_win,
-            params.subpix_iters, n_bits, params.decode_samples, *_decode_bars(params, n_bits),
-            codes.numel(),
-            float(params.subpix_acc), float(params.refine_clamp_px),
-            float(params.min_cell_contrast), float(params.dedup_radius_rate))
+            *detect_scalars(params, n_bits, B, H, W, Q, codes.numel()))
         detect_candidates.launches += 1
     return Detections(corners, ids, keep, score)
 
