@@ -365,7 +365,7 @@ def test_threads_follow_the_affinity(masks, monkeypatch):
     entry = ccl.quad_candidates_gated_batch
 
     def spy(*args):
-        seen.append(args[-1])
+        seen.append(args[16])  # the thread count, before the optional times buffer
         return entry(*args)
 
     monkeypatch.setattr(ccl, "quad_candidates_gated_batch", spy)
@@ -374,3 +374,44 @@ def test_threads_follow_the_affinity(masks, monkeypatch):
     _assert_bytes(out, _gated_batch(packed, H, W, 1)[0], "perception")
     with pytest.raises(ValueError, match="threads"):
         _gated_batch(packed, H, W, 0)
+
+
+def test_the_times_buffer_leaves_bytes_and_counters_alone(masks, monkeypatch):
+    """The optional times buffer of the gated batch entry: the same bytes
+    and re-fit counters as without it, the threads' ticks in the labeler
+    and in the gates, no more than the threads times the call's own ticks,
+    and the threads that ran; through
+    ``quads_from_packed_masks(counters=...)``, :data:`gate_counts` keeps its
+    keys and adds the same values as a call without counters."""
+    packed, H, W = masks
+    B, Wn, _, Wb = packed.shape
+    without, counts = _gated_batch(packed, H, W, 3)
+    quads = np.empty((B, Wn * KS, 4, 2), np.float32)
+    areas = np.empty((B, Wn * KS), np.float32)
+    valid = np.empty((B, Wn * KS), bool)
+    stats = np.empty(len(TP.GATE_COUNTS), np.int64)
+    times = np.full(4, -1.0)
+    tnative.get_fastccl().quad_candidates_gated_batch(
+        np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, P.min_area,
+        P.max_area_rate * H * W, P.border_margin, 4.0 * max(P.win_sizes), quads, areas, valid,
+        stats, 3, times)
+    _assert_bytes((quads, valid, areas), without, "with times")
+    assert dict(zip(TP.GATE_COUNTS, stats.tolist())) == counts
+    assert times[0] > 0 and times[1] > 0 and times[2] == 3
+    assert times[0] + times[1] <= 3 * times[3]
+    with pytest.raises(ValueError, match="times"):
+        tnative.get_fastccl().quad_candidates_gated_batch(
+            np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, P.min_area,
+            P.max_area_rate * H * W, P.border_margin, 4.0 * max(P.win_sizes), quads, areas,
+            valid, stats, 3, np.empty(3))
+
+    added = []
+    for counters in (None, {}):
+        monkeypatch.setattr(TP, "gate_counts", dict.fromkeys(TP.GATE_COUNTS, 0))
+        out = TP.quads_from_packed_masks(packed, H, W, P, counters)
+        assert list(TP.gate_counts) == list(TP.GATE_COUNTS)
+        added.append(dict(TP.gate_counts))
+        _assert_bytes(out, without, "perception")
+    assert added[0] == added[1] == counts
+    assert set(counters) == {"labeler_s", "gates_s", "threads"}
+    assert counters["threads"] == TP._host_threads(B * Wn)

@@ -651,6 +651,71 @@ def test_phase_sync_waits_for_the_card(cuda):
     assert all(e["seconds"] > 0.05 for e in timer.events), timer.events
 
 
+def _count_synchronizations(monkeypatch) -> list:
+    """Every ``torch.cuda.Stream.synchronize`` from now on, in a list."""
+    seen, real = [], torch.cuda.Stream.synchronize
+
+    def counted(stream):
+        seen.append(stream)
+        return real(stream)
+
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", counted)
+    return seen
+
+
+@pytest.mark.gpu
+def test_a_capture_times_its_kernels_and_adds_one_wait_a_batch(cuda, monkeypatch):
+    """Six frames in batches of 2 on the card: the "detect program" and
+    "PnP" events, and they alone, carry a device time, above 0 and at most
+    their host time; and the capture synchronizes a stream once a phase:
+    the seven phases a batch that synchronized before, and "candidates
+    upload", whose end comes just before that of "host candidates" around
+    it."""
+    frames, names, frame_cams = _rendered_640(cuda, 2, 7)
+    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
+              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
+              batch_size=2, verbose=False)
+    estimate_pose_gray(frames, names, frame_cams, **kw)  # builds and loads the kernels
+    syncs = _count_synchronizations(monkeypatch)
+    timer = PhaseTimer(verbose=False, device=cuda)
+    edges = estimate_pose_gray(frames, names, frame_cams, timer=timer, **kw)
+    assert len(edges) > 5
+    before = ("upload", "threshold kernel", "masks to host", "host candidates",
+              "detect program", "PnP", "dict")
+    timed = sorted(e["name"] for e in timer.events if e["device_seconds"] is not None)
+    assert timed == sorted(("detect program", "PnP") * 3)
+    assert sorted(e["name"] for e in timer.events) == sorted(
+        (*before, "candidates upload", "wait for feed") * 3)
+    assert len(syncs) == len(before) * 3 + 3
+    for e in timer.events:
+        if e["name"] in ("detect program", "PnP"):
+            assert 0 < e["device_seconds"] <= e["seconds"], e
+
+
+@pytest.mark.gpu
+def test_a_dense_solve_times_its_stages_and_adds_three_waits(cuda, monkeypatch):
+    """A dense-route solve on the card: the three stages nest in
+    "Optimizing + solving (device)" and record no timing events, and the
+    solve synchronizes five times: at the end of the two phases that did
+    before, and of the three stages."""
+    prob = make_problem_arrays(seed=13, n_cams=40, n_times=256, n_markers=8,
+                               n_edges=6000, kappa_r=1e5, sigma_t=1e-4)
+    args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0, lambda e: True)
+    bipgo.bipartite_se3sync(*args, maxiter=4, verbose=False)
+    syncs = _count_synchronizations(monkeypatch)
+    timer = PhaseTimer(verbose=False, device=cuda)
+    bipgo.bipartite_se3sync(*args, maxiter=4, verbose=False, timer=timer)
+    stages = ["Folding constraints (device)", "Rotation sync (device)", "Translations (device)"]
+    assert [e["name"] for e in timer.events] == [
+        "Applying constraints", *stages, "Optimizing + solving (device)"]
+    assert len(syncs) == 2 + 3
+    assert all(e["device_seconds"] is None for e in timer.events)
+    ev = {e["name"]: e for e in timer.events}
+    assert sum(ev[n]["seconds"] for n in stages) <= ev["Optimizing + solving (device)"]["seconds"]
+    assert ev["Rotation sync (device)"]["iterations"] >= 1
+    assert ev["Translations (device)"]["iterations"] >= 1
+
+
 def _detect_inputs(cuda, frames, params, aruco="DICT_4X4_1000"):
     """A batch's detect inputs as the feed hands them to the drain: the
     threshold kernel's masks, the C labeler's gated candidates moved to the

@@ -29,7 +29,7 @@ from test_torch_perception import (KW, MARKER_SIZE, _assert_identical_edges,
                                    _assert_same_edges, _cams, _port_cams, _traj)
 from torch_threads import two_threads  # noqa: F401
 
-DRAIN = {"detect program", "PnP", "dict"}
+DRAIN = {"wait for feed", "detect program", "PnP", "dict"}
 
 
 @pytest.fixture(scope="module")
@@ -130,8 +130,9 @@ def test_missing_file_raises_from_the_worker(rendered):
 
 def test_timer_events_carry_their_stage(rendered):
     """Every perception phase is a ``feed`` or a ``drain`` event with its
-    start; both stages appear, each with its own phases (the host
-    candidates, the C labeler with its gates, run on the feed alone)."""
+    start; both stages appear, each with its own phases (the decode, the
+    host candidates, the C labeler with its gates, run on the feed alone;
+    the wait for the feed on the drain)."""
     files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
     timer = PhaseTimer(verbose=False, device="cpu")
     TP.estimate_pose_batched(files, cams, device="cpu", timer=timer, **dict(KW, batch_size=2))
@@ -140,9 +141,54 @@ def test_timer_events_carry_their_stage(rendered):
         stages.setdefault(e["stage"], set()).add(e["name"])
         assert e["start"] > 0 and e["seconds"] >= 0
     assert set(stages) == {"feed", "drain"}
-    assert stages["feed"] == {"upload", "threshold kernel", "masks to host", "host candidates"}
+    assert stages["feed"] == {"decode", "upload", "threshold kernel", "masks to host",
+                              "host candidates", "candidates upload"}
     assert stages["drain"] == DRAIN
     assert sum(e["name"] == "dict" for e in timer.events) == 3
+
+
+@pytest.mark.parametrize("labeler", ["c", "scipy"])
+def test_every_batch_records_its_spans_and_counters(rendered, monkeypatch, labeler, two_threads):
+    """The file entry over three batches of 2, brightness and contrast set
+    so that the preprocess runs: once a batch, the feed's "decode",
+    "preprocess" and "candidates upload" (nested in "host candidates") and
+    the drain's "wait for feed", every feed and drain event of a batch
+    with its index; "host candidates" counts the labeler's and the gates'
+    seconds, the threads and the valid slots, with the C labeler and with
+    scipy; "dict" counts the batch's detections."""
+    if labeler == "scipy":
+        monkeypatch.setenv("VICAN_TPU_NO_NATIVE", "1")
+        monkeypatch.setattr(tnative, "_cache", {})
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    timer = PhaseTimer(verbose=False, device="cpu")
+    edges = TP.estimate_pose_batched(files, cams, device="cpu", timer=timer,
+                                     **dict(KW, batch_size=2, brightness=-10, contrast=10))
+    assert TP.last_labeler == labeler
+    per_batch = {}
+    for e in timer.events:
+        per_batch.setdefault(e["batch"], []).append(e)
+    assert sorted(per_batch) == [0, 1, 2]
+    for bi, events in per_batch.items():
+        names = [e["name"] for e in events]
+        for name in ("decode", "preprocess", "candidates upload", "wait for feed",
+                     "host candidates", "detect program", "dict"):
+            assert names.count(name) == 1, (bi, name, names)
+        ev = {e["name"]: e for e in events}
+        assert {ev[n]["stage"] for n in ("decode", "preprocess", "candidates upload")} == {
+            "feed"}
+        assert ev["wait for feed"]["stage"] == "drain"
+        assert ev["candidates upload"]["parent"] == "host candidates"
+        assert all(ev[n]["parent"] is None for n in ("decode", "preprocess", "upload",
+                                                      "host candidates", "wait for feed",
+                                                      "detect program", "PnP", "dict"))
+        counts = ev["host candidates"]
+        assert counts["labeler_s"] > 0 and counts["gates_s"] > 0
+        assert counts["labeler_s"] + counts["gates_s"] <= counts["threads"] * counts["seconds"]
+        assert counts["threads"] == (TP._host_threads(2 * 7) if labeler == "c" else 1)
+        assert counts["candidates"] > 0
+        assert all(e["device_seconds"] is None for e in events)
+    assert sum(e["detections"] for e in timer.events if e["name"] == "dict") == len(edges)
+    assert len(edges) > 10
 
 
 def test_verbose_phase_lines_stay_whole(capsys):

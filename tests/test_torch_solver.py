@@ -7,6 +7,7 @@ from packing, and packing is tested field for field on its own.
 """
 import importlib.util
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -275,7 +276,8 @@ def test_bipartite_se3sync_mesh_none_solves(prob):
     from vican_tpu.bipgo import bipartite_se3sync as jse3
 
     jparams = list(inspect.signature(jse3).parameters)
-    assert list(inspect.signature(tbipgo.bipartite_se3sync).parameters) == [*jparams, "device"]
+    assert list(inspect.signature(tbipgo.bipartite_se3sync).parameters) == [
+        *jparams, "device", "timer"]
     args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0, lambda e: True)
     # maxiter, lsqr_solver, dtype, verbose, mesh by position, as the JAX call
     with_mesh = tbipgo.bipartite_se3sync(*args, 4, "conjugate_gradient", np.float64, False,
@@ -298,3 +300,78 @@ def test_bipartite_se3sync_mesh_raises(prob):
         tbipgo.large_bipartite_so3sync(prob.edges, prob.constraints(), lambda e: 1.0,
                                        lambda e: True, 4, verbose=False, mesh="edges",
                                        device="cpu")
+
+
+def _solver_phase_line():
+    """The solve benchmark's pattern of a phase line
+    (``perfbench/drivers/solve.py:_PHASE_LINE``)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "perfbench", "drivers",
+                        "solve.py")
+    with open(path) as f:
+        found = re.search(r'^_PHASE_LINE = re\.compile\(r"(.*)"\)$', f.read(), re.M)
+    return re.compile(found.group(1))
+
+
+@pytest.mark.parametrize("solver", ["conjugate_gradient", "direct"])
+def test_dense_route_records_its_three_stages(prob, monkeypatch, capsys, solver):
+    """``bipartite_se3sync(timer=...)`` on the dense route: "Folding
+    constraints (device)", "Rotation sync (device)" and "Translations
+    (device)" nested in "Optimizing + solving (device)", in that order; the
+    rotations count ``num_iters`` iterations and as many host reads, the
+    translations the CG's (or LSQR's) own iterations and reads; verbose,
+    every phase prints the line the solve benchmark parses, the existing
+    phases as before, and the translation iterations follow the
+    "Iterations:" line."""
+    from vican_torch.utils import PhaseTimer
+
+    seen = {}
+    real_sync, real_cg = tcore.so3_sync, tcore._cg
+
+    def sync_spy(*args, **kw):
+        result = real_sync(*args, **kw)
+        seen["num_iters"] = result.num_iters
+        return result
+
+    def cg_spy(mv, b, tol, maxiter, counters=None):
+        products = [0]
+
+        def counted(x):
+            products[0] += 1
+            return mv(x)
+
+        x = real_cg(counted, b, tol, maxiter, counters)
+        seen["cg"] = products[0] - 1  # one product before the first iteration
+        return x
+
+    monkeypatch.setattr(tcore, "so3_sync", sync_spy)
+    monkeypatch.setattr(tcore, "_cg", cg_spy)
+    args = (prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0, lambda e: True)
+    timer = PhaseTimer(verbose=True, device="cpu")
+    tbipgo.bipartite_se3sync(*args, maxiter=4, lsqr_solver=solver, dtype=np.float64,
+                             verbose=True, device="cpu", timer=timer)
+    ev = {e["name"]: e for e in timer.events}
+    stages = ["Folding constraints (device)", "Rotation sync (device)", "Translations (device)"]
+    assert [e["name"] for e in timer.events] == [
+        "Applying constraints", *stages, "Optimizing + solving (device)"]
+    assert all(ev[n]["parent"] == "Optimizing + solving (device)" for n in stages)
+    assert ev["Optimizing + solving (device)"]["parent"] is None
+    assert ev["Rotation sync (device)"]["iterations"] == seen["num_iters"] >= 1
+    assert ev["Rotation sync (device)"]["host_reads"] == seen["num_iters"]
+    tr = ev["Translations (device)"]
+    if solver == "conjugate_gradient":
+        assert tr["iterations"] == seen["cg"] >= 1 and tr["host_reads"] == seen["cg"] + 1
+    else:
+        assert "cg" not in seen and tr["iterations"] >= 3 and tr["host_reads"] >= 3
+    inner = sum(ev[n]["seconds"] for n in stages)
+    assert inner <= ev["Optimizing + solving (device)"]["seconds"]
+
+    lines = capsys.readouterr().out.splitlines()
+    pattern = _solver_phase_line()
+    printed = [m.group(1) for m in map(pattern.match, lines) if m]
+    assert printed == [e["name"] for e in timer.events]
+    for line in lines:
+        if pattern.match(line):
+            assert re.fullmatch(r".* \(\d+\.\d{3}s\)\.", line), line
+    at = next(i for i, line in enumerate(lines) if line.startswith("Iterations: "))
+    done = lines.index("Done!")
+    assert done > at + 1 and lines[done - 1] == f"Translation iterations: {tr['iterations']}"

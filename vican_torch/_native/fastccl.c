@@ -44,7 +44,9 @@
  * and gates, a batch in one call, its (frame, window) masks spread over
  * the threads the caller names) and gate_candidates_batch() (the gates
  * on given slots, one thread); tests/test_torch_gates.py holds them to
- * the numpy gates.
+ * the numpy gates.  quad_candidates_gated_batch() also reports, where the
+ * caller asks, its threads' time in the labeler and in the gates and the
+ * call's own, in ticks of one clock, and how many threads ran.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -53,6 +55,7 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <time.h>
 
 typedef struct {
     int32_t area;
@@ -553,8 +556,27 @@ typedef struct {
 typedef struct {
     GatedBatch *job;
     int64_t stats[GS_N]; /* this thread's re-fit counters */
+    uint64_t labeler, gates; /* its ticks in qc_core and gate_window */
     int rc;
 } GatedWorker;
+
+/* A worker's clock around each mask's two steps, in ticks that the caller
+ * turns into seconds by the call's own ticks and its own clock around the
+ * call: on x86 the time-stamp counter, elsewhere CLOCK_MONOTONIC in
+ * nanoseconds.  Not clock_gettime on x86: that import grows the module's
+ * PLT and moves the labeler's code, which cost it ~10% of a 720p batch's
+ * wall on one host (in one process, against the module without it); the
+ * counter adds no import. */
+#if defined(__x86_64__) || defined(__i386__)
+#include <x86intrin.h>
+static inline uint64_t ticks(void) { return __rdtsc(); }
+#else
+static inline uint64_t ticks(void) {
+    struct timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    return (uint64_t)ts.tv_sec * 1000000000u + (uint64_t)ts.tv_nsec;
+}
+#endif
 
 static void *gated_worker(void *arg) {
     GatedWorker *w = (GatedWorker *)arg;
@@ -562,19 +584,27 @@ static void *gated_worker(void *arg) {
     const Py_ssize_t Ks = job->K + job->K2;
     int32_t *areas_i = (int32_t *)malloc((size_t)Ks * sizeof(int32_t) + 1);
     w->rc = areas_i ? 0 : -1;
+    uint64_t labeler = 0, gates = 0;
     while (!w->rc && !__atomic_load_n(&job->failed, __ATOMIC_RELAXED)) {
         const Py_ssize_t m = __atomic_fetch_add(&job->next, 1, __ATOMIC_RELAXED);
         if (m >= job->masks) break;
         const uint8_t *mask = job->im + (size_t)m * job->H * job->Wb;
         float *quads = job->quads + (size_t)m * Ks * 8;
         int n8, n4;
+        const uint64_t t0 = ticks();
         w->rc = qc_core(mask, job->H, job->W, job->Wb, job->K, job->K2, job->gp->min_area,
                         job->max_area, quads, areas_i, &n8, &n4);
-        if (!w->rc)
+        const uint64_t t1 = ticks();
+        labeler += t1 - t0;
+        if (!w->rc) {
             w->rc = gate_window(mask, job->Wb, job->gp, job->K, Ks, n8, n4, quads, areas_i,
                                 job->areas + (size_t)m * Ks, job->valid + (size_t)m * Ks,
                                 w->stats);
+            gates += ticks() - t1;
+        }
     }
+    w->labeler = labeler;
+    w->gates = gates;
     if (w->rc) __atomic_store_n(&job->failed, 1, __ATOMIC_RELAXED);
     free(areas_i);
     return NULL;
@@ -583,12 +613,16 @@ static void *gated_worker(void *arg) {
 /* quad_candidates_gated_batch(packed, B, Wn, H, W, Wb, K, K2, min_area,
  *                             max_area, border_margin, min_hollow_side,
  *                             quads_out, areas_out, valid_out, stats_out,
- *                             threads)
+ *                             threads[, times_out])
  *   packed: contiguous bit-packed (B, Wn, H, Wb) masks (the layout of
  *   qc_core); the outputs are writable contiguous buffers that the call
  *   fills: quads float32 (B, Wn*(K+K2), 4, 2), areas float32
  *   (B, Wn*(K+K2)), valid bool (B, Wn*(K+K2)), stats int64 (GS_N,), the
- *   re-fit counters of quad_gates.h.
+ *   re-fit counters of quad_gates.h, and where given times float64 (4,):
+ *   the ticks the threads spent in the labeler and in the gates, summed
+ *   over them, the number of threads that ran, and the ticks from before
+ *   the first thread starts to after the last one joins (the caller's
+ *   clock around the call, over these, scales the first two).
  * Each (frame, window) is labeled as quad_candidates_batch labels it, then
  * wound, gated and re-fit as vican_torch/perception.py's _gated_candidates
  * does it (quad_gates.h), byte for byte: the whole of perception's host
@@ -599,18 +633,22 @@ static void *gated_worker(void *arg) {
  * share to the others.  Returns None.
  */
 static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
-    Py_buffer fg, q_out, a_out, v_out, s_out;
+    Py_buffer fg, q_out, a_out, v_out, s_out, t_out;
     Py_ssize_t B, Wn, H, W, Wb, K, K2, threads;
     GateParams gp;
     double max_area;
-    if (!PyArg_ParseTuple(args, "y*nnnnnnnddddw*w*w*w*n", &fg, &B, &Wn, &H, &W, &Wb, &K, &K2,
-                          &gp.min_area, &max_area, &gp.border_margin, &gp.min_hollow_side,
-                          &q_out, &a_out, &v_out, &s_out, &threads))
+    memset(&t_out, 0, sizeof(t_out));
+    if (!PyArg_ParseTuple(args, "y*nnnnnnnddddw*w*w*w*n|w*", &fg, &B, &Wn, &H, &W, &Wb, &K,
+                          &K2, &gp.min_area, &max_area, &gp.border_margin,
+                          &gp.min_hollow_side, &q_out, &a_out, &v_out, &s_out, &threads,
+                          &t_out))
         return NULL;
     const char *err = gated_args_error(B, Wn, H, W, Wb, K, K2, &fg, &q_out, &a_out, &v_out,
                                        &s_out);
     if (!err && threads < 1)
         err = "threads must be at least 1";
+    if (!err && t_out.obj && t_out.len < 4 * (Py_ssize_t)sizeof(double))
+        err = "times buffer too small";
     int rc = 0;
     if (!err) {
         gp.H = H;
@@ -626,6 +664,7 @@ static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
         if (!workers || !tids || !started) {
             rc = -1;
         } else {
+            const uint64_t t0 = ticks();
             for (Py_ssize_t t = 0; t < nt; t++) workers[t].job = &job;
             for (Py_ssize_t t = 1; t < nt; t++)
                 started[t] = pthread_create(&tids[t], NULL, gated_worker, &workers[t]) == 0;
@@ -633,10 +672,15 @@ static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
             for (Py_ssize_t t = 1; t < nt; t++)
                 if (started[t]) pthread_join(tids[t], NULL);
             memset(stats, 0, GS_N * sizeof(int64_t));
+            double times[4] = {0.0, 0.0, 0.0, (double)(ticks() - t0)};
             for (Py_ssize_t t = 0; t < nt; t++) {
                 rc |= workers[t].rc;
                 for (int k = 0; k < GS_N; k++) stats[k] += workers[t].stats[k];
+                times[0] += (double)workers[t].labeler;
+                times[1] += (double)workers[t].gates;
+                times[2] += (t == 0 || started[t]) ? 1.0 : 0.0;
             }
+            if (t_out.obj) memcpy(t_out.buf, times, sizeof(times));
         }
         free(workers);
         free(tids);
@@ -648,6 +692,7 @@ static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
     PyBuffer_Release(&a_out);
     PyBuffer_Release(&v_out);
     PyBuffer_Release(&s_out);
+    if (t_out.obj) PyBuffer_Release(&t_out);
     if (err) {
         PyErr_SetString(PyExc_ValueError, err);
         return NULL;

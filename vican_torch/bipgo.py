@@ -116,8 +116,10 @@ def _use_scale_path(C: int, T: int, dtype) -> bool:
     return block_bytes > _block_budget_bytes() or C > min_cams
 
 
-def _solve_translations(result, arrs, packed, lsqr_solver, C, T):
-    """Translation stage (bipgo.py:420-481) from the synced rotations."""
+def _solve_translations(result, arrs, packed, lsqr_solver, C, T, counters=None):
+    """Translation stage (bipgo.py:420-481) from the synced rotations;
+    ``counters`` receives the CG's or LSQR's ``iterations`` and
+    ``host_reads``."""
     t_tilde = _core.translation_rhs(
         result.r_cam, result.r_time, arrs["t_e"], arrs["k_t"], arrs["cam_idx"],
         arrs["time_idx"], arrs["marker_idx"], arrs["R_con"], arrs["t_con"],
@@ -125,7 +127,8 @@ def _solve_translations(result, arrs, packed, lsqr_solver, C, T):
     )
     solve = (_core.solve_translations_cg if lsqr_solver == "conjugate_gradient"
              else _core.solve_translations_lsqr)
-    return solve(t_tilde, arrs["k_t"], arrs["cam_idx"], arrs["time_idx"], C=C, T=T)
+    return solve(t_tilde, arrs["k_t"], arrs["cam_idx"], arrs["time_idx"], C=C, T=T,
+                 counters=counters)
 
 
 def _poses_out(packed, result, t_est) -> dict:
@@ -186,20 +189,22 @@ def _so3_sync_large_from_packed(packed: PackedProblem, dtype, maxiter, tm, verbo
         chunked[0].shape[0], chunk_t, reason))
     solve = (_scale.so3_sync_large if mesh is None
              else partial(_scale.so3_sync_large_sharded, mesh=mesh))
-    with tm.phase("Optimizing (chunked power graph)"):
+    with tm.phase("Optimizing (chunked power graph)") as counts:
         result = solve(*chunked, C=C, T=T, chunk_t=chunk_t, maxiter=maxiter,
-                       cert_tol=1e-6 / packed.k_r_scale, device=device)
+                       cert_tol=1e-6 / packed.k_r_scale, device=device, counters=counts)
     if verbose:
         _log_sync_result(tm, result)
     return result
 
 
 def _start(src_edges, constraints, noise_model_r, noise_model_t, edge_filter,
-           dtype, verbose, device, mesh=None):
+           dtype, verbose, device, mesh=None, timer=None):
     """What every entry point does first: check ``mesh`` (``None`` or a
     ``DeviceMesh``, else ``TypeError``), resolve the device (``None`` is the
     card), turn TF32 off, check the dtype, log the graph's size and pack the
-    edge dict.  Returns ``(device, dtype, torch dtype, timer, packed)``."""
+    edge dict.  ``timer``: the caller's :class:`PhaseTimer`, or None for a
+    new one on the device that prints when ``verbose``.  Returns
+    ``(device, dtype, torch dtype, timer, packed)``."""
     if mesh is not None:
         from .parallel.sharded import _group
 
@@ -208,7 +213,7 @@ def _start(src_edges, constraints, noise_model_r, noise_model_t, edge_filter,
     no_tf32()
     dtype = _solver_dtype(dtype)
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    tm = PhaseTimer(verbose=verbose, device=device)
+    tm = timer or PhaseTimer(verbose=verbose, device=device)
     if verbose:  # the node-count set over 2E keys is pure logging cost
         tm.log("Received graph with {} nodes {} edges".format(
             len({n for e in src_edges for n in e}), len(src_edges)))
@@ -231,6 +236,7 @@ def bipartite_se3sync(
     verbose: bool = True,
     mesh=None,
     device=None,
+    timer: PhaseTimer | None = None,
 ) -> dict:
     """SE(3) synchronization in large bipartite graphs with node constraints.
 
@@ -244,7 +250,13 @@ def bipartite_se3sync(
     over the ranks' cards and every rank solves the translations on its
     own, so every rank returns the whole result (the dense route ignores
     ``mesh``, as in JAX).  ``device``: where the solve runs; ``None`` is
-    the CUDA card (the rank's own under a mesh).
+    the CUDA card (the rank's own under a mesh).  ``timer`` collects the
+    phases (:func:`_start`).  On the dense route "Optimizing + solving
+    (device)" holds "Folding constraints (device)", "Rotation sync
+    (device)" and "Translations (device)"; the last two count their
+    ``iterations`` and ``host_reads``, as the large-graph route's
+    "Optimizing (chunked power graph)" and "Solving translations
+    (matrix-free)" do.
     """
     if lsqr_solver not in ("conjugate_gradient", "direct"):
         raise ValueError(
@@ -253,30 +265,37 @@ def bipartite_se3sync(
         )
     device, dtype, tdt, tm, packed = _start(
         src_edges, constraints, noise_model_r, noise_model_t, edge_filter, dtype, verbose,
-        device, mesh)
+        device, mesh, timer)
     tm.log("Bipartite graph: {} cameras, {} timesteps, {} edges.".format(
         packed.num_cams, packed.num_times, packed.num_edges))
 
     C, T = packed.num_cams, packed.num_times
     if _use_scale_path(C, T, dtype):
         result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device, mesh)
-        with tm.phase("Solving translations (matrix-free)"):
+        with tm.phase("Solving translations (matrix-free)") as translations:
             arrs = _device_arrays(packed, tdt, device)
-            t_est, res = _solve_translations(result, arrs, packed, lsqr_solver, C, T)
+            t_est, res = _solve_translations(result, arrs, packed, lsqr_solver, C, T,
+                                             translations)
     else:
         with tm.phase("Optimizing + solving (device)"):
-            arrs = _device_arrays(packed, tdt, device)
-            KR = _core.fold_constraints(
-                arrs["R_e"], arrs["k_r"], arrs["marker_idx"], arrs["R_con"],
-                packed.root_idx,
-            )
-            result = _core.so3_sync(
-                KR, arrs["k_r"], arrs["cam_idx"], arrs["time_idx"], C=C, T=T,
-                maxiter=maxiter, cert_tol=1e-6 / packed.k_r_scale,
-            )
-            t_est, res = _solve_translations(result, arrs, packed, lsqr_solver, C, T)
+            with tm.phase("Folding constraints (device)"):
+                arrs = _device_arrays(packed, tdt, device)
+                KR = _core.fold_constraints(
+                    arrs["R_e"], arrs["k_r"], arrs["marker_idx"], arrs["R_con"],
+                    packed.root_idx,
+                )
+            with tm.phase("Rotation sync (device)") as rotations:
+                result = _core.so3_sync(
+                    KR, arrs["k_r"], arrs["cam_idx"], arrs["time_idx"], C=C, T=T,
+                    maxiter=maxiter, cert_tol=1e-6 / packed.k_r_scale, counters=rotations,
+                )
+            with tm.phase("Translations (device)") as translations:
+                t_est, res = _solve_translations(result, arrs, packed, lsqr_solver, C, T,
+                                                 translations)
         if verbose:
             _log_sync_result(tm, result)
+    if verbose:
+        tm.log("Translation iterations: {}".format(translations["iterations"]))
     res = float(res)
     if res > 1e-3:
         warnings.warn(f"translation solve residual {res:.3e} (poorly converged)")
@@ -295,6 +314,7 @@ def large_bipartite_so3sync(
     verbose: bool = True,
     mesh=None,
     device=None,
+    timer: PhaseTimer | None = None,
 ) -> dict:
     """SO(3) synchronization in large bipartite graphs with node constraints:
     the rotation stage of :func:`bipartite_se3sync` alone, on the same two
@@ -302,17 +322,17 @@ def large_bipartite_so3sync(
     least ``"pose"``.  Returns world-frame (3, 3) rotations keyed by camera
     id and ``"<t>_0"``.  ``mesh``: as in :func:`bipartite_se3sync` (a
     keyword the JAX function lacks).  ``device``: where the solve runs;
-    ``None`` is the CUDA card."""
+    ``None`` is the CUDA card.  ``timer``: as in :func:`bipartite_se3sync`."""
     device, dtype, tdt, tm, packed = _start(
         src_edges, constraints, noise_model, lambda e: 1.0, edge_filter, dtype, verbose,
-        device, mesh)
+        device, mesh, timer)
     tm.log("Bipartite graph: {} cameras, {} timesteps, {} edges.".format(
         packed.num_cams, packed.num_times, packed.num_edges))
     C, T = packed.num_cams, packed.num_times
     if _use_scale_path(C, T, dtype):
         result = _so3_sync_large_from_packed(packed, dtype, maxiter, tm, verbose, device, mesh)
     else:
-        with tm.phase("Optimizing"):
+        with tm.phase("Optimizing") as rotations:
             arrs = _device_arrays(packed, tdt, device)
             KR = _core.fold_constraints(
                 arrs["R_e"], arrs["k_r"], arrs["marker_idx"], arrs["R_con"],
@@ -320,7 +340,7 @@ def large_bipartite_so3sync(
             )
             result = _core.so3_sync(
                 KR, arrs["k_r"], arrs["cam_idx"], arrs["time_idx"], C=C, T=T,
-                maxiter=maxiter, cert_tol=1e-6 / packed.k_r_scale,
+                maxiter=maxiter, cert_tol=1e-6 / packed.k_r_scale, counters=rotations,
             )
         if verbose:
             _log_sync_result(tm, result)
@@ -340,6 +360,7 @@ def bipartite_so3sync(
     dtype=np.float32,
     verbose: bool = True,
     device=None,
+    timer: PhaseTimer | None = None,
 ) -> dict:
     """SO(3) sync on the full bipartite connection Laplacian: the
     reference's small-graph variant (bipgo.py:18-142), with its own
@@ -349,10 +370,11 @@ def bipartite_so3sync(
     untransposed (3, 3) output blocks keyed by camera id and ``"<t>_0"``.
     Nodes are ordered as the reference orders its ``'c<id>'``/``'t<id>'``
     names, cameras first.  O((3(C+T))^3) per iteration: for small graphs.
-    ``device``: where the solve runs; ``None`` is the CUDA card."""
+    ``device``: where the solve runs; ``None`` is the CUDA card.
+    ``timer``: as in :func:`bipartite_se3sync`."""
     device, dtype, tdt, tm, packed = _start(
         src_edges, constraints, noise_model, lambda e: 1.0, edge_filter, dtype, verbose,
-        device)
+        device, timer=timer)
     C, T = packed.num_cams, packed.num_times
     n = C + T
     if verbose:
@@ -386,6 +408,7 @@ def object_bipartite_se3sync(
     dtype=np.float32,
     verbose: bool = True,
     device=None,
+    timer: PhaseTimer | None = None,
 ) -> dict:
     """Calibrate a marker object from a single static camera.
 
@@ -393,7 +416,7 @@ def object_bipartite_se3sync(
     "time" role, with inverted poses (bipgo.py:524-531), then runs
     :func:`bipartite_se3sync` with an identity constraint on the lowest
     marker id.  Returns only the marker poses (keys without ``"_"``), in
-    the root-marker frame.
+    the root-marker frame.  ``timer``: as in :func:`bipartite_se3sync`.
     """
     edges = {}
     root = str(min(int(e[1].split("_")[1]) for e in src_edges))
@@ -414,5 +437,6 @@ def object_bipartite_se3sync(
         dtype=dtype,
         verbose=verbose,
         device=device,
+        timer=timer,
     )
     return {k: v for k, v in out.items() if "_" not in k}

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import functools
 import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -95,9 +96,13 @@ __all__ = [
 # the per-batch phases, in order (PhaseTimer names): the device program
 # runs "threshold kernel" and "masks to host", the host program "host
 # threshold", the pure program "threshold kernel" and "device candidates"
-# in place of the masks' fetch and "host candidates"
-PHASES = ("upload", "threshold kernel", "masks to host", "host threshold",
-          "host candidates", "device candidates", "detect program", "PnP", "dict")
+# in place of the masks' fetch and "host candidates" (with its child
+# "candidates upload"); "decode" and "preprocess" (host-only) run in
+# estimate_pose_batched's loader on the feed, "wait for feed" (host-only)
+# on the drain before it takes the batch
+PHASES = ("decode", "preprocess", "upload", "threshold kernel", "masks to host",
+          "host threshold", "host candidates", "candidates upload", "device candidates",
+          "wait for feed", "detect program", "PnP", "dict")
 
 # the host labeler that the last quads_from_masks / quads_from_packed_masks
 # call ran: "c" (_native/fastccl.c) or "scipy"
@@ -475,7 +480,7 @@ def _host_threads(masks: int) -> int:
     return max(1, min(len(os.sched_getaffinity(0)), masks))
 
 
-def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params):
+def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params, counters=None):
     """The C labeler, winding, gates and re-fit on bit-packed
     ``(B, Wn, >=H, ceil(W/8))`` masks, every (frame, window) in ONE call
     that releases the GIL (``fastccl.quad_candidates_gated_batch``, byte for
@@ -483,19 +488,29 @@ def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params):
     ``fastccl.quad_candidates_batch``), its masks spread over
     :func:`_host_threads` threads: ``(quads, valid, areas)`` as
     :func:`quads_from_masks` returns them.  Adds its re-fit branches to
-    :data:`gate_counts`."""
+    :data:`gate_counts`, and its threads' times to ``counters``
+    (:func:`quads_from_packed_masks`)."""
     B, Wn, _, Wb = packed.shape
     K, K2 = params.max_candidates, params.max_candidates_4conn
     quads = np.empty((B, Wn * (K + K2), 4, 2), np.float32)
     areas = np.empty((B, Wn * (K + K2)), np.float32)
     valid = np.empty((B, Wn * (K + K2)), bool)
     stats = np.empty(len(GATE_COUNTS), np.int64)
+    times = np.empty(4, np.float64)
+    t0 = time.perf_counter()
     ccl.quad_candidates_gated_batch(
         np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, params.min_area,
         params.max_area_rate * H * W, params.border_margin, _min_hollow_side(params),
-        quads, areas, valid, stats, _host_threads(B * Wn))
+        quads, areas, valid, stats, _host_threads(B * Wn), times)
+    seconds = time.perf_counter() - t0
     for name, n in zip(GATE_COUNTS, stats.tolist()):
         gate_counts[name] += n
+    if counters is not None:
+        # the workers' ticks in seconds: the call's seconds on the host
+        # clock over its ticks on the workers' clock
+        per_tick = seconds / max(times[3], 1.0)
+        counters.update(labeler_s=float(times[0]) * per_tick,
+                        gates_s=float(times[1]) * per_tick, threads=int(times[2]))
     return quads, valid, areas
 
 
@@ -582,7 +597,7 @@ def _gated_candidates(quads, areas, counts, mask_of, H, W, params):
     return quads, valid, areas
 
 
-def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params):
+def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params, counters=None):
     """Quad candidates from bit-packed (B, Wn, H, ceil(W/8)) masks
     (little-endian bits; bits of columns >= W must be zero, as the
     threshold kernel, its plain version and :func:`host_threshold` leave
@@ -594,15 +609,27 @@ def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params):
     (:func:`_c_candidates`): it reads the packed rows in place, skips empty
     bytes and holds no GIL.  Without the C module the masks are unpacked
     for the scipy labeler and :func:`_gated_candidates`.
+
+    ``counters``, where given, a dict that receives ``labeler_s`` and
+    ``gates_s``, the seconds spent labeling (with the scipy labeler, the
+    masks' unpacking too) and gating, summed over the threads, and
+    ``threads``, how many ran: the C module's own clock on each of its
+    threads, else the host clock around the two steps on one thread.
     """
     global last_labeler, last_gates
     ccl = _get_ccl()
     if ccl is not None:
         last_labeler, last_gates = "c", "c"
-        return _c_candidates(ccl, packed, H, W, params)
+        return _c_candidates(ccl, packed, H, W, params, counters)
+    t0 = time.perf_counter()
     fg = np.unpackbits(packed, axis=-1, bitorder="little")[:, :, :H, :W]
     last_labeler, last_gates = "scipy", "numpy"
-    return _gated_candidates(*_scipy_slots(fg, params), lambda b, wi: fg[b, wi], H, W, params)
+    slots = _scipy_slots(fg, params)
+    t1 = time.perf_counter()
+    out = _gated_candidates(*slots, lambda b, wi: fg[b, wi], H, W, params)
+    if counters is not None:
+        counters.update(labeler_s=t1 - t0, gates_s=time.perf_counter() - t1, threads=1)
+    return out
 
 
 def _min_hollow_side(params) -> float:
@@ -784,7 +811,13 @@ class _Program:
         re-fit, then on the card their upload; the host modes) or the
         device candidates (``pure``).  On the
         card it runs on the caller's current stream, the feed's own
-        (:func:`_edges`).
+        (:func:`_edges`).  The "host candidates" event counts the
+        labeler's and the gates' thread-seconds (``labeler_s``,
+        ``gates_s``), the ``threads`` that ran and the valid
+        ``candidates`` slots, which the drain's detect program takes in;
+        its child "candidates upload" times their move to the card (on the
+        CPU, nothing).  "detect program" and "PnP" record
+        ``device_seconds``; the feed's phases record no timing events.
 
         The host candidates run here whole because the C module's one call
         a batch holds no GIL.  The numpy gates of a host without the C
@@ -816,13 +849,15 @@ class _Program:
                 with timer.phase("host threshold", stage="feed"):
                     host = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
                     packed = host_threshold(host, p)
-            with timer.phase("host candidates", stage="feed"):
-                candidates = quads_from_packed_masks(packed, H, W, p)
-                if g.is_cuda:
-                    # on the feed's stream, which the masks' fetch left
-                    # idle: the drain's detect program then waits on
-                    # nothing but the feed's event
-                    candidates = tuple(torch.as_tensor(c).to(dev) for c in candidates)
+            with timer.phase("host candidates", stage="feed") as counts:
+                candidates = quads_from_packed_masks(packed, H, W, p, counts)
+                counts["candidates"] = int(np.count_nonzero(candidates[1]))
+                with timer.phase("candidates upload", stage="feed"):
+                    if g.is_cuda:
+                        # on the feed's stream, which the masks' fetch left
+                        # idle: the drain's detect program then waits on
+                        # nothing but the feed's event
+                        candidates = tuple(torch.as_tensor(c).to(dev) for c in candidates)
         ready = None
         if g.is_cuda:
             ready = torch.cuda.Event()
@@ -846,10 +881,10 @@ class _Program:
             for t in (fed.g, fed.Ks, fed.dists, *fed.candidates):
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     t.record_stream(stream)
-        with timer.phase("detect program", stage="drain"):
+        with timer.phase("detect program", stage="drain", device_time=True):
             det = D_.detect_candidates(fed.g, *fed.candidates, self.codes, self.n_bits,
                                        self.params)
-        with timer.phase("PnP", stage="drain"):
+        with timer.phase("PnP", stage="drain", device_time=True):
             out = _pnp_block(det, fed.Ks, fed.dists, self.marker_size, self.lm_iters,
                              self.pnp_method)
         return _Fetched(out)
@@ -944,7 +979,14 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
     waits on each batch's event and records the feed's tensors on its own
     stream (:meth:`_Program.drain`).  :class:`PhaseTimer` synchronizes the
     calling thread's stream only, so the stages do not wait for each
-    other's kernels; its events carry ``stage`` ``"feed"`` or ``"drain"``.
+    other's kernels; its events carry ``stage`` ``"feed"`` or ``"drain"``,
+    ``batch`` (the batch's index, set on each thread by
+    :meth:`PhaseTimer.in_batch`: every feed and drain event of a batch
+    shares it) and ``parent`` (the phase open around it on its own thread,
+    which the timer keeps per thread, as the two stages nest theirs at
+    once).  The drain's host-only "wait for feed" phase is the time it
+    waits for the feed to hand over the batch: where it is long, the feed
+    sets the rate.  The "dict" event counts the batch's ``detections``.
     On the CPU all stream handling is skipped and the same two threads
     run.  The worker writes ``multi_threshold.launches``,
     :data:`last_labeler`, :data:`last_gates` and :data:`gate_counts`,
@@ -968,29 +1010,31 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
         feed_stream = torch.cuda.Stream(dev)
         feed_stream.wait_stream(torch.cuda.current_stream(dev))
 
-    def feed(load) -> _Fed:
-        files, cams, gray = load()
-        nb = len(files)
-        if nb < B:
-            pad = B - nb
-            if isinstance(gray, torch.Tensor):
-                gray = torch.cat([gray, gray[-1:].expand(pad, *gray.shape[1:])])
-            else:
-                gray = np.concatenate([gray, np.repeat(gray[-1:], pad, axis=0)])
-            cams = list(cams) + [cams[-1]] * pad
-        lo = rank * Bs
-        files, cams, gray = files[lo:lo + Bs], cams[lo:lo + Bs], gray[lo:lo + Bs]
-        nb = max(0, min(nb - lo, Bs))
-        if feed_stream is None:
-            return program.feed(files, cams, nb, gray, timer)
-        with torch.cuda.device(dev), torch.cuda.stream(feed_stream):
-            return program.feed(files, cams, nb, gray, timer)
+    def feed(bi, load) -> _Fed:
+        with timer.in_batch(bi):
+            files, cams, gray = load()
+            nb = len(files)
+            if nb < B:
+                pad = B - nb
+                if isinstance(gray, torch.Tensor):
+                    gray = torch.cat([gray, gray[-1:].expand(pad, *gray.shape[1:])])
+                else:
+                    gray = np.concatenate([gray, np.repeat(gray[-1:], pad, axis=0)])
+                cams = list(cams) + [cams[-1]] * pad
+            lo = rank * Bs
+            files, cams, gray = files[lo:lo + Bs], cams[lo:lo + Bs], gray[lo:lo + Bs]
+            nb = max(0, min(nb - lo, Bs))
+            if feed_stream is None:
+                return program.feed(files, cams, nb, gray, timer)
+            with torch.cuda.device(dev), torch.cuda.stream(feed_stream):
+                return program.feed(files, cams, nb, gray, timer)
 
     def consume(bi, files, cams, nb, fetched: _Fetched):
         nonlocal total
         keys = []
-        with timer.phase("dict", stage="drain"):
+        with timer.phase("dict", stage="drain") as counts:
             corners, ids, ok, R, t, err = _unpack_pnp_result(fetched.numpy())
+            counts["detections"] = int(np.count_nonzero(ok[: nb * Dcap]))
             for j in range(nb):
                 for k in range(Dcap):
                     e = j * Dcap + k
@@ -1007,23 +1051,27 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
                     total += 1
         order.append(keys)
         if verbose:
-            print(f"  batch {bi}: {nb} images, {int(ok[: nb * Dcap].sum())} detections")
+            print(f"  batch {bi}: {nb} images, {counts['detections']} detections")
 
     ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vican-feed")
     try:
-        futs = deque(ex.submit(feed, load) for load in loads[:depth])
+        futs = deque(ex.submit(feed, bi, load) for bi, load in enumerate(loads[:depth]))
         pending = None
         for bi in range(len(loads)):
-            fed = futs.popleft().result()
-            if bi + depth < len(loads):
-                futs.append(ex.submit(feed, loads[bi + depth]))
-            fetched = program.drain(fed, timer)
+            with timer.in_batch(bi):
+                with timer.phase("wait for feed", stage="drain", host_only=True):
+                    fed = futs.popleft().result()
+                if bi + depth < len(loads):
+                    futs.append(ex.submit(feed, bi + depth, loads[bi + depth]))
+                fetched = program.drain(fed, timer)
             if pending is not None:
-                consume(*pending)
+                with timer.in_batch(pending[0]):
+                    consume(*pending)
             pending = (bi, fed.files, fed.cams, fed.nb, fetched)
             del fed  # its frames and candidates, once the drain's stream is done
         if pending is not None:
-            consume(*pending)
+            with timer.in_batch(pending[0]):
+                consume(*pending)
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
     if verbose:
@@ -1166,7 +1214,8 @@ def estimate_pose_batched(
         """Decode, check and preprocess one batch (JAX's ``prepare``,
         vican_tpu/perception.py:1325-1363); runs on the feed thread."""
         files, bcams = im_filenames[start:start + B], cams[start:start + B]
-        images = load_images(files, grayscale=gray_direct)
+        with timer.phase("decode", stage="feed", host_only=True):
+            images = load_images(files, grayscale=gray_direct)
         decl = res_of(bcams[0])
         if None not in decl and tuple(images.shape[1:3]) != decl:
             raise ValueError(
@@ -1176,8 +1225,10 @@ def estimate_pose_batched(
                 "record, or leave resolution_x/y as None to group by "
                 "actual image size"
             )
-        gray = images if gray_direct else host_preprocess(
-            images, float(brightness), float(contrast))
+        if gray_direct:
+            return files, bcams, images
+        with timer.phase("preprocess", stage="feed", host_only=True):
+            gray = host_preprocess(images, float(brightness), float(contrast))
         return files, bcams, gray
 
     loads = [functools.partial(load, s) for s in range(0, len(im_filenames), B)]

@@ -183,7 +183,7 @@ def so3_sync_small(KR, k_r, i_idx, j_idx, *, n: int, maxiter: int):
 
 
 def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,
-             cert_tol=1e-6, reduce=None) -> SyncResult:
+             cert_tol=1e-6, reduce=None, counters=None) -> SyncResult:
     """Primal-dual SO(3) synchronization over the camera power graph.
 
     Faithful to ``large_bipartite_so3sync`` (bipgo.py:145-350): degree-dual
@@ -195,6 +195,8 @@ def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,
     ``KR (E,3,3)`` folded blocks, ``k_r (E,)`` weights, ``cam_idx``/
     ``time_idx (E,)`` node indices, all on one device; ``reduce`` (module
     docstring) sums the degrees and the block operator over the ranks.
+    ``counters``, where given, a dict that receives ``iterations`` (one
+    dense ``eigh`` each) and ``host_reads`` (the certificate's reads).
     """
     no_tf32()
     dtype, dev = KR.dtype, KR.device
@@ -215,7 +217,7 @@ def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,
     ev_hist = torch.zeros(HIST_CAP, 5, dtype=dtype, device=dev)
     gap_hist = torch.zeros(HIST_CAP, dtype=dtype, device=dev)
 
-    it, max_eval = 0, 1.0
+    it, max_eval, reads = 0, 1.0, 0
     while it < maxiter and max_eval > cert_tol:
         pwr = _power_graph(B, lbd_t)
         L = _add_block_diag(-pwr, lbd_c)
@@ -246,7 +248,10 @@ def so3_sync(KR, k_r, cam_idx, time_idx, *, C: int, T: int, maxiter: int,
         gap_hist[slot] = eigengap
         it += 1
         max_eval = float(torch.abs(evals5).max())
+        reads += 1
 
+    if counters is not None:
+        counters.update(iterations=it, host_reads=reads)
     return SyncResult(
         r_cam=r_c.transpose(-1, -2),
         r_time=r_t.transpose(-1, -2),
@@ -333,10 +338,12 @@ def _translation_normal_rhs(t_tilde, k_t, cam_idx, time_idx, C, T, reduce=None):
     return out if reduce is None else reduce(out)
 
 
-def _cg(mv, b, tol, maxiter):
+def _cg(mv, b, tol, maxiter, counters=None):
     """Conjugate gradient with ``jax.scipy.sparse.linalg.cg``'s semantics:
     ``x0 = 0``, stop once ``|r|^2 <= tol^2 |b|^2``, ``maxiter = 10 * b.size``
-    when None.  The stopping test is read on the host once per iteration."""
+    when None.  The stopping test is read on the host once per iteration
+    (and once more where it stops the loop); ``counters``, where given,
+    receives ``iterations`` and ``host_reads``, counted at the read."""
     if maxiter is None:
         maxiter = 10 * b.numel()
     x = torch.zeros_like(b)
@@ -344,8 +351,11 @@ def _cg(mv, b, tol, maxiter):
     r = b - mv(x)
     p = r
     gamma = torch.sum(r * r)
-    k = 0
-    while k < maxiter and bool(gamma > atol2):
+    k = reads = 0
+    while k < maxiter:
+        reads += 1
+        if not bool(gamma > atol2):
+            break
         Ap = mv(p)
         alpha = gamma / torch.sum(p * Ap)
         x = x + alpha * p
@@ -354,33 +364,38 @@ def _cg(mv, b, tol, maxiter):
         p = r + (gamma_new / gamma) * p
         gamma = gamma_new
         k += 1
+    if counters is not None:
+        counters.update(iterations=k, host_reads=reads)
     return x
 
 
 def solve_translations_cg(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
-                          tol=1e-5, maxiter=None, reduce=None):
+                          tol=1e-5, maxiter=None, reduce=None, counters=None):
     """CG on the normal equations (bipgo.py:476-478), from ``x0 = 0`` with
     relative tolerance ``tol``.  The system is singular (global translation
     gauge) but consistent; CG stays in the range space, like the reference.
-    ``reduce`` sums the right-hand side and the operator over the ranks.
-    Returns ``(x (C+T, 3), relative residual)``."""
+    ``reduce`` sums the right-hand side and the operator over the ranks;
+    ``counters`` receives the CG's ``iterations`` and ``host_reads``
+    (:func:`_cg`).  Returns ``(x (C+T, 3), relative residual)``."""
     no_tf32()
     b = _translation_normal_rhs(t_tilde, k_t, cam_idx, time_idx, C, T, reduce)
     mv = _make_normal_mv(k_t * k_t, cam_idx, time_idx, C, T, reduce)
-    x = _cg(mv, b, tol, maxiter)
+    x = _cg(mv, b, tol, maxiter, counters)
     res = torch.linalg.vector_norm(mv(x) - b) / torch.clamp_min(
         torch.linalg.vector_norm(b), 1e-30)
     return x, res
 
 
 def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
-                            atol=1e-8, btol=1e-8, maxiter=None, reduce=None):
+                            atol=1e-8, btol=1e-8, maxiter=None, reduce=None, counters=None):
     """LSQR (Paige & Saunders) on the incidence operator, one coordinate
     column at a time; the reference's "direct" path
     (``scipy.sparse.linalg.lsqr``, bipgo.py:479-480).  Stops on SciPy's
     test 2, ``|A^T r| <= atol |A| |r|``: running past Krylov exhaustion on
     the rank-deficient system makes the recurrences diverge.  ``reduce``
-    sums the node-space products and the edge-space norms over the ranks."""
+    sums the node-space products and the edge-space norms over the ranks.
+    ``counters``, where given, receives ``iterations`` and ``host_reads``
+    (the stopping test's reads), summed over the three columns."""
     red = reduce or (lambda x: x)
     no_tf32()
     N = C + T
@@ -416,7 +431,10 @@ def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
         anorm2 = alpha * alpha
         normar = alpha * beta0
         i = 0
-        while i < maxiter and bool(normar > atol * torch.sqrt(anorm2) * torch.abs(phibar) + 1e-30):
+        while i < maxiter:
+            counts[1] += 1
+            if not bool(normar > atol * torch.sqrt(anorm2) * torch.abs(phibar) + 1e-30):
+                break
             u1 = A_col(v) - alpha * u
             beta = norm_e(u1)
             u1 = u1 / torch.clamp_min(beta, 1e-30)
@@ -436,9 +454,13 @@ def solve_translations_lsqr(t_tilde, k_t, cam_idx, time_idx, *, C: int, T: int,
             normar = torch.abs(phibar) * alpha1 * torch.abs(c)
             u, v, alpha = u1, v1, alpha1
             i += 1
+        counts[0] += i
         return x
 
+    counts = [0, 0]
     x_cols = torch.stack([lsqr_1d(t_tilde[:, j]) for j in range(3)], dim=1)
+    if counters is not None:
+        counters.update(iterations=counts[0], host_reads=counts[1])
 
     def A(x):
         return k_t[:, None] * (x[C:][time_idx] - x[:C][cam_idx])

@@ -317,15 +317,17 @@ def _subspace_init(n, m, dtype, device):
 
 
 def _sync_loop(prepare, time_products, deg_c, deg_t, *, C, maxiter, cert_tol, cheb_degree,
-               cheb_rounds, cheb_degree_warm, subspace, pol):
+               cheb_rounds, cheb_degree_warm, subspace, pol, counters=None):
     """The primal-dual iteration of the large-graph route, shared by
     :func:`so3_sync_large` and :func:`so3_sync_large_sharded`: ``prepare``/
     ``time_products`` are :func:`_make_operator`'s closures (or their
     sharded wrappers), ``deg_c (C,)`` the camera degrees, ``deg_t`` the
     degrees of the time nodes the closures cover.  The loop's host test
     reads only ``evals5``, which comes from the (reduced) full products, so
-    every rank of a sharded solve leaves on the same iteration.  Returns
-    ``(iterations, r_c, r_t, evals5, eigengap, ev_hist, gap_hist)``."""
+    every rank of a sharded solve leaves on the same iteration; ``counters``,
+    where given, receives ``iterations`` and ``host_reads`` (the reads of
+    the loop's test).  Returns ``(iterations, r_c, r_t, evals5, eigengap, ev_hist,
+    gap_hist)``."""
     dtype, device = deg_c.dtype, deg_c.device
     n = 3 * C
     eye3 = torch.eye(3, dtype=dtype, device=device)
@@ -341,7 +343,7 @@ def _sync_loop(prepare, time_products, deg_c, deg_t, *, C, maxiter, cert_tol, ch
     lmax_raw_prev = torch.zeros((), dtype=dtype, device=device)
     a_raw_prev = torch.zeros((), dtype=dtype, device=device)
 
-    it, max_eval = 0, 1.0
+    it, max_eval, reads = 0, 1.0, 0
     while it < maxiter and max_eval > cert_tol:
         # normalize by the largest Lambda_C diagonal entry (>= max |diag L|)
         # for float32-stable filtering; eigenvalues are scaled back
@@ -400,7 +402,10 @@ def _sync_loop(prepare, time_products, deg_c, deg_t, *, C, maxiter, cert_tol, ch
         lmax_raw_prev, a_raw_prev = lmax_raw, a_raw
         it += 1
         max_eval = float(torch.abs(evals5).max())
+        reads += 1
 
+    if counters is not None:
+        counters.update(iterations=it, host_reads=reads)
     return it, r_c, r_t, evals5, eigengap, ev_hist, gap_hist
 
 
@@ -423,6 +428,7 @@ def so3_sync_large(
     polish_deg: int = 6,
     materialize_budget: int = _MATERIALIZE_BUDGET_BYTES,
     device=None,
+    counters=None,
 ) -> SyncResult:
     """Primal-dual SO(3) sync without the dense (C, 3, T, 3) block tensor
     and without ever forming the (3C, 3C) power graph.
@@ -433,7 +439,7 @@ def so3_sync_large(
     subspace with one ``cheb_degree_warm`` pass.  Mathematically the same
     iteration as :func:`vican_torch.solver.core.so3_sync` (same
     initialization, update order and certificate).  ``device`` defaults to
-    the CUDA card.
+    the CUDA card; ``counters`` as :func:`_sync_loop`'s.
     """
     device = resolve_device(device)
     no_tf32()
@@ -448,7 +454,7 @@ def so3_sync_large(
     it, r_c, r_t, evals5, eigengap, ev_hist, gap_hist = _sync_loop(
         prepare, time_products, deg_c, deg_t, C=C, maxiter=maxiter, cert_tol=cert_tol,
         cheb_degree=cheb_degree, cheb_rounds=cheb_rounds, cheb_degree_warm=cheb_degree_warm,
-        subspace=subspace, pol=polish_deg if f_dtype is not None else 0)
+        subspace=subspace, pol=polish_deg if f_dtype is not None else 0, counters=counters)
     return SyncResult(
         r_cam=r_c.transpose(-1, -2),
         r_time=r_t[:T].transpose(-1, -2),
@@ -501,6 +507,7 @@ def so3_sync_large_sharded(
     polish_deg: int = 6,
     materialize_budget: int = _MATERIALIZE_BUDGET_BYTES,
     device=None,
+    counters=None,
 ) -> SyncResult:
     """:func:`so3_sync_large` with the time chunks split over the ranks of
     ``mesh`` (a 1-D ``DeviceMesh``, :mod:`vican_torch.parallel`;
@@ -555,7 +562,7 @@ def so3_sync_large_sharded(
     it, r_c, r_t, evals5, eigengap, ev_hist, gap_hist = _sync_loop(
         prepare, time_products, deg_c, deg_t, C=C, maxiter=maxiter, cert_tol=cert_tol,
         cheb_degree=cheb_degree, cheb_rounds=cheb_rounds, cheb_degree_warm=cheb_degree_warm,
-        subspace=subspace, pol=polish_deg if f_dtype is not None else 0)
+        subspace=subspace, pol=polish_deg if f_dtype is not None else 0, counters=counters)
     parts = [torch.empty_like(r_t) for _ in range(world)]
     dist.all_gather(parts, r_t.contiguous(), group=group)
     return SyncResult(
