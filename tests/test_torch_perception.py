@@ -337,3 +337,46 @@ def test_host_preprocess_of_gray_frames_needs_no_opencv(monkeypatch, brightness,
     with pytest.raises(ImportError):
         TP.host_preprocess(np.repeat(gray[..., None], 3, axis=-1), float(brightness),
                            float(contrast))
+
+
+def _preprocess_input(kind: str) -> np.ndarray:
+    """BGR frames in which every byte value appears in each channel beside
+    random colours, gray frames with every byte value, a strided view of
+    BGR frames, and int16 and float32 batches past [0, 255] for the float32
+    path."""
+    rng = np.random.default_rng(7)
+    if kind in ("bgr", "bgr view"):
+        x = rng.integers(0, 256, (3, 19, 41, 3), dtype=np.uint8)
+        every = np.arange(256, dtype=np.uint8)
+        x[0].reshape(-1, 3)[:256] = np.stack([np.roll(every, 85 * k) for k in range(3)], -1)
+        return x[:, :, ::-1] if kind == "bgr view" else x
+    if kind == "gray":
+        x = rng.integers(0, 256, (3, 37, 53), dtype=np.uint8)
+        x[1].reshape(-1)[:256] = np.arange(256)
+        return x
+    if kind == "int16":
+        return rng.integers(-40, 300, (2, 19, 41, 3), dtype=np.int16)
+    return rng.uniform(-40.0, 300.0, (2, 19, 41, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["bgr", "bgr view", "gray", "int16", "float32"])
+@pytest.mark.parametrize("brightness,contrast", [
+    (-150, 120), (30, -40), (0, 120), (-150, 0), (12.5, 33.3), (-127, -127),
+    (-300, 0), (300, 0)], ids=lambda v: str(v))
+def test_host_preprocess_is_bit_equal_to_jax(kind, brightness, contrast):
+    """The port's host_preprocess (a 256-entry table on uint8 frames, the
+    float32 expression on other dtypes) gives the JAX package's bytes at
+    every (brightness, contrast) of the grid, clipping every value to 0
+    (-300, 0) and to 255 (300, 0) among them; ``table_frames`` counts the
+    frames that went through the table: every uint8 frame, no other."""
+    from vican_tpu.perception import host_preprocess
+
+    images = _preprocess_input(kind)
+    ref = host_preprocess(images, float(brightness), float(contrast))
+    counts = {}
+    out = TP.host_preprocess(images, float(brightness), float(contrast), counts)
+    assert out.dtype == ref.dtype == np.uint8
+    np.testing.assert_array_equal(out, ref)
+    assert counts["table_frames"] == (len(images) if images.dtype == np.uint8 else 0)
+    if (brightness, contrast) in ((-300, 0), (300, 0)):
+        assert np.all(out == (0 if brightness < 0 else 255))

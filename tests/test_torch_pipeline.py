@@ -191,6 +191,32 @@ def test_every_batch_records_its_spans_and_counters(rendered, monkeypatch, label
     assert len(edges) > 10
 
 
+@pytest.mark.parametrize("batch_size,frames", [(2, [2, 2, 2]), (4, [4, 2])])
+def test_every_preprocess_counts_its_table_frames(rendered, batch_size, frames):
+    """Brightness -10 and contrast 10: every batch's "preprocess" event
+    counts in ``table_frames`` the batch's frames, the short last one's
+    too, all of them sent through the table."""
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    timer = PhaseTimer(verbose=False, device="cpu")
+    TP.estimate_pose_batched(files, cams, device="cpu", timer=timer,
+                             **dict(KW, batch_size=batch_size, brightness=-10, contrast=10))
+    events = sorted((e for e in timer.events if e["name"] == "preprocess"),
+                    key=lambda e: e["batch"])
+    assert [e["batch"] for e in events] == list(range(len(frames)))
+    assert [e["table_frames"] for e in events] == frames
+
+
+def test_no_preprocess_without_brightness_or_contrast(rendered):
+    """Brightness = contrast = 0: the files decode straight to gray, and no
+    "preprocess" event appears."""
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    timer = PhaseTimer(verbose=False, device="cpu")
+    TP.estimate_pose_batched(files, cams, device="cpu", timer=timer,
+                             **dict(KW, batch_size=2, brightness=0, contrast=0))
+    names = {e["name"] for e in timer.events}
+    assert "decode" in names and "preprocess" not in names
+
+
 def test_verbose_phase_lines_stay_whole(capsys):
     """Phases ending on several threads at once print whole lines."""
     timer = PhaseTimer(verbose=True)

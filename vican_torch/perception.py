@@ -178,28 +178,56 @@ def _probe_image_size(fn: str) -> tuple[int, int]:
     return (h, w)
 
 
-def host_preprocess(images: np.ndarray, brightness: float, contrast: float) -> np.ndarray:
+def _contrast_brightness(x: np.ndarray, brightness: float, contrast: float) -> np.ndarray:
+    """The reference's transform, cam.py:137-145: scale and shift in
+    float32, clip to [0, 255], truncate to uint8."""
+    x = x.astype(np.float32)
+    if contrast != 0:
+        x = x * (contrast / 127.0 + 1.0) - contrast
+    x = x + brightness
+    return np.clip(x, 0.0, 255.0).astype(np.uint8)
+
+
+def host_preprocess(images: np.ndarray, brightness: float, contrast: float,
+                    counters=None) -> np.ndarray:
     """Reference contrast/brightness + BGR grayscale, on host (uint8 out).
 
-    Bit-matches cam.py:137-145: int16 scale, clip, uint8 truncation, then
-    OpenCV BGR2GRAY for ``(N, H, W, 3)`` BGR input; gray ``(N, H, W)``
-    input needs no OpenCV.
+    Bit-matches cam.py:137-145 (:func:`_contrast_brightness`), then OpenCV
+    BGR2GRAY for ``(N, H, W, 3)`` BGR input; gray ``(N, H, W)`` input
+    needs no OpenCV.  On uint8 input the transform is a function of the
+    byte alone, so it runs as a 256-entry table made by the same float32
+    expression over every byte value: the same bytes, without the float32
+    copies of the batch (~25 ms a 720p BGR frame on one core; the table
+    and the gray conversion ~2 ms).  BGR frames go through ``cv.LUT`` and
+    ``cv.cvtColor`` a frame at a time into one output.  Other dtypes take
+    the float32 expression itself.
+
+    ``counters``, where given, a dict that receives ``table_frames``, the
+    number of frames that went through the table.
     """
+    table = None
     if contrast == 0 and brightness == 0:
-        # the transform is the identity on uint8 (x + 0, clip, truncate);
-        # skipping the float32 round trip saves ~12 ms/image on one core
+        # the transform is the identity on uint8 (x + 0, clip, truncate)
         x = images
+    elif images.dtype == np.uint8:
+        x = images
+        table = _contrast_brightness(np.arange(256, dtype=np.uint8), brightness, contrast)
     else:
-        x = images.astype(np.float32)
-        if contrast != 0:
-            x = x * (contrast / 127.0 + 1.0) - contrast
-        x = x + brightness
-        x = np.clip(x, 0.0, 255.0).astype(np.uint8)
+        x = _contrast_brightness(images, brightness, contrast)
+    if counters is not None:
+        counters["table_frames"] = len(images) if table is not None else 0
     if x.ndim == 4 and x.shape[-1] == 3:
         import cv2 as cv
 
-        x = np.stack([cv.cvtColor(im, cv.COLOR_BGR2GRAY) for im in x])
-    return x
+        out = np.empty(x.shape[:3], x.dtype)
+        mapped = np.empty(x.shape[1:], x.dtype) if table is not None else None
+        for im, o in zip(x, out):
+            im = np.ascontiguousarray(im)
+            if table is not None:
+                im = cv.LUT(im, table, dst=mapped)
+            cv.cvtColor(im, cv.COLOR_BGR2GRAY, dst=o)
+        return out
+    return x if table is None else table[x]
 
 
 def _quad_gates(quads: np.ndarray, areas: np.ndarray, H: int, W: int, params) -> np.ndarray:
@@ -1227,8 +1255,8 @@ def estimate_pose_batched(
             )
         if gray_direct:
             return files, bcams, images
-        with timer.phase("preprocess", stage="feed", host_only=True):
-            gray = host_preprocess(images, float(brightness), float(contrast))
+        with timer.phase("preprocess", stage="feed", host_only=True) as counts:
+            gray = host_preprocess(images, float(brightness), float(contrast), counts)
         return files, bcams, gray
 
     loads = [functools.partial(load, s) for s in range(0, len(im_filenames), B)]
