@@ -380,3 +380,115 @@ def test_host_preprocess_is_bit_equal_to_jax(kind, brightness, contrast):
     assert counts["table_frames"] == (len(images) if images.dtype == np.uint8 else 0)
     if (brightness, contrast) in ((-300, 0), (300, 0)):
         assert np.all(out == (0 if brightness < 0 else 255))
+
+
+# ------------------------------------------- a rig of two frame sizes
+
+RIG_K = {(320, 180): np.array([[210.0, 0, 160], [0, 210.0, 90], [0, 0, 1]]),
+         (640, 360): np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])}
+# (camera, position, resolution, distorted), in the order its frames arrive
+RIG = [("s0", (1.6, 0, 1.2), (320, 180), False), ("big", (0, 2.4, 1.4), (640, 360), True),
+       ("s1", (-1.2, 1.1, 1.0), (320, 180), False), ("s2", (0.2, -1.6, 1.5), (320, 180), False)]
+RIG_KW = {k: v for k, v in KW.items() if k not in ("brightness", "contrast", "batch_size")}
+
+
+@pytest.fixture(scope="module")
+def rig(tmp_path_factory):
+    """3 cameras at 320x180 and one distorted at 640x360, 4 timesteps,
+    frames interleaved as they arrive (timesteps outer), rendered by the
+    port's renderer and written as lossless PNGs whose paths name them;
+    and the port's edges through ``estimate_pose_gray``'s sequence form,
+    batch 5, so that each size ends in a padded tail batch."""
+    root = tmp_path_factory.mktemp("rig")
+    cams = [TC.Camera(id=c, intrinsics=RIG_K[res], distortion=(DIST if d else np.zeros(12)).copy(),
+                      extrinsics=TR.look_at(p, (0, 0, 1.0)), resolution_x=res[0],
+                      resolution_y=res[1]) for c, p, res, d in RIG]
+    markers = TR.make_cube_markers()
+    tiles = TR.marker_tiles(list(markers))
+    frames, files, frame_cams = [], [], []
+    for t, obj in _traj(4, 5).items():
+        world = {m: obj @ p for m, p in markers.items()}
+        for cam in cams:
+            frames.append(TR.render_image(cam, world, tiles, MARKER_SIZE, device="cpu").numpy())
+            path = root / t / f"{cam.id}.png"
+            path.parent.mkdir(exist_ok=True)
+            cv.imwrite(str(path), frames[-1])
+            files.append(str(path))
+            frame_cams.append(cam)
+    timer = PhaseTimer(verbose=False, device="cpu")
+    out = TP.estimate_pose_gray(frames, files, frame_cams, device="cpu", timer=timer,
+                                batch_size=5, **RIG_KW)
+    return frames, files, frame_cams, out, timer.events
+
+
+def test_a_rig_of_two_sizes_is_the_union_of_one_call_per_size(rig):
+    """The sequence form groups the frames by size (first seen first) and
+    runs the groups' batches through one pipeline: its dict is, key for key
+    and value for value and in order, that of one array call per size; the
+    feed stacks each batch once ("stack", with its size and frame count)
+    and every upload carries its batch's size."""
+    frames, files, cams, out, events = rig
+    union = {}
+    for size in ((180, 320), (360, 640)):
+        idx = [i for i, f in enumerate(frames) if f.shape == size]
+        union.update(TP.estimate_pose_gray(np.stack([frames[i] for i in idx]),
+                                           [files[i] for i in idx], [cams[i] for i in idx],
+                                           device="cpu", batch_size=5, **RIG_KW))
+    assert {k[0] for k in union} == {c for c, *_ in RIG}
+    assert len(union) > 40
+    _assert_identical_edges(union, out)
+    for name in ("stack", "upload"):
+        got = sorted((e["batch"], e["height"], e["width"]) for e in events if e["name"] == name)
+        assert got == [(0, 180, 320), (1, 180, 320), (2, 180, 320), (3, 360, 640)]
+    assert [e["frames"] for e in sorted((e for e in events if e["name"] == "stack"),
+                                        key=lambda e: e["batch"])] == [5, 5, 2, 4]
+
+
+def test_the_file_entry_groups_a_rig_like_the_frames(rig):
+    """``estimate_pose_batched`` on the same frames as lossless PNGs
+    (brightness and contrast 0) groups them through the same one pipeline
+    and returns the same dict, which is the JAX package's on those files
+    (vican_tpu/perception.py:1267-1280 groups them a call per size)."""
+    frames, files, cams, out, _ = rig
+    timer = PhaseTimer(verbose=False, device="cpu")
+    via_files = TP.estimate_pose_batched(files, cams, brightness=0, contrast=0, device="cpu",
+                                         timer=timer, batch_size=5, **RIG_KW)
+    _assert_identical_edges(out, via_files)
+    assert sorted(e["batch"] for e in timer.events if e["name"] == "decode") == [0, 1, 2, 3]
+    jax_cams = [Camera(id=c.id, intrinsics=c.intrinsics, distortion=c.distortion,
+                       extrinsics=SE3(R=np.asarray(c.extrinsics.R()),
+                                      t=np.asarray(c.extrinsics.t())),
+                       resolution_x=c.resolution_x,
+                       resolution_y=c.resolution_y) for c in cams]
+    ref = estimate_pose_mp(files, jax_cams, pipeline_mode="device", marker_ids=None,
+                           brightness=0, contrast=0, batch_size=5, **RIG_KW)
+    _assert_same_edges(ref, via_files)
+    assert list(via_files) == list(ref)
+
+
+def test_an_array_keeps_its_slices_and_records_no_stack(rig):
+    frames, files, cams, _, _ = rig
+    idx = [i for i, f in enumerate(frames) if f.shape == (180, 320)]
+    timer = PhaseTimer(verbose=False, device="cpu")
+    TP.estimate_pose_gray(np.stack([frames[i] for i in idx]), [files[i] for i in idx],
+                          [cams[i] for i in idx], device="cpu", timer=timer, batch_size=5,
+                          **RIG_KW)
+    names = [e["name"] for e in timer.events]
+    assert "stack" not in names and names.count("upload") == 3
+    assert all((e["height"], e["width"]) == (180, 320)
+               for e in timer.events if e["name"] == "upload")
+
+
+@pytest.mark.parametrize("bad", ["three dimensions", "float32", "int16 tensor", "one name short"])
+def test_a_frame_that_is_not_2d_uint8_raises(rig, bad):
+    frames, files, cams, _, _ = rig
+    frames = list(frames[:4])
+    if bad == "three dimensions":
+        frames[1] = np.stack([frames[1]] * 3, axis=-1)
+    elif bad == "float32":
+        frames[2] = frames[2].astype(np.float32)
+    elif bad == "int16 tensor":
+        frames[3] = torch.as_tensor(frames[3]).to(torch.int16)
+    with pytest.raises(ValueError):
+        TP.estimate_pose_gray(frames, files[:4 if bad != "one name short" else 3], cams[:4],
+                              device="cpu", batch_size=5, **RIG_KW)

@@ -68,7 +68,7 @@ from __future__ import annotations
 import functools
 import os
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterable
@@ -97,10 +97,11 @@ __all__ = [
 # runs "threshold kernel" and "masks to host", the host program "host
 # threshold", the pure program "threshold kernel" and "device candidates"
 # in place of the masks' fetch and "host candidates" (with its child
-# "candidates upload"); "decode" and "preprocess" (host-only) run in
-# estimate_pose_batched's loader on the feed, "wait for feed" (host-only)
+# "candidates upload"); "stack" (host-only) runs in estimate_pose_gray's
+# loader of a sequence of frames, "decode" and "preprocess" (host-only) in
+# estimate_pose_batched's, both on the feed; "wait for feed" (host-only)
 # on the drain before it takes the batch
-PHASES = ("decode", "preprocess", "upload", "threshold kernel", "masks to host",
+PHASES = ("stack", "decode", "preprocess", "upload", "threshold kernel", "masks to host",
           "host threshold", "host candidates", "candidates upload", "device candidates",
           "wait for feed", "detect program", "PnP", "dict")
 
@@ -857,7 +858,8 @@ class _Program:
         p, dev = self.params, self.device
         H, W = gray.shape[1:]
         Ks, dists = _camera_arrays(cams)
-        with timer.phase("upload", stage="feed"):
+        with timer.phase("upload", stage="feed") as counts:
+            counts["height"], counts["width"] = H, W
             g = torch.as_tensor(gray).to(dev).contiguous()
             Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
             dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
@@ -1127,6 +1129,15 @@ def _gather_edges(mesh, out: dict, order: list) -> dict:
     return merged
 
 
+def _group_batches(keys, B: int) -> list:
+    """The frames' indices batch by batch: grouped by ``keys`` (a frame
+    size each), the groups in first-seen order, each ``B`` at a time."""
+    groups: dict = {}
+    for i, key in enumerate(keys):
+        groups.setdefault(key, []).append(i)
+    return [idx[s:s + B] for idx in groups.values() for s in range(0, len(idx), B)]
+
+
 def estimate_pose_gray(
     gray,
     im_filenames: list[str],
@@ -1143,10 +1154,18 @@ def estimate_pose_gray(
     timer: PhaseTimer | None = None,
     pipeline_mode: str = "auto",
 ) -> dict:
-    """Perception from preprocessed gray frames: uint8 ``(N, H, W)`` (a
-    numpy array or a tensor on any device) with one file name and one
+    """Perception from preprocessed gray frames, with one file name and one
     camera per frame -> the reference edge dict.  The file names only name
     the detections (``"<parent dir>_<marker>"``, :func:`gen_marker_uid`).
+
+    ``gray``: uint8 ``(N, H, W)`` (a numpy array or a tensor on any
+    device), whose batches are slices of it; or a sequence of 2-D uint8
+    frames (numpy arrays or tensors) of any mix of sizes, as a rig of
+    several camera models decodes them.  The sequence's frames are grouped
+    by size, groups in first-seen order, and every group's batches run in
+    turn through one pipeline; the feed stacks each batch from its frames
+    (host-only phase "stack", counters ``height``, ``width``, ``frames``).
+    The dict is the union of one call per size.
 
     ``pipeline_mode``: ``"auto"`` (= ``"device"``), ``"device"``,
     ``"host"``, ``"roi"`` (these give the same detections) or ``"pure"``
@@ -1163,10 +1182,29 @@ def estimate_pose_gray(
     timer = timer or PhaseTimer(verbose=False, device=device)
     B = batch_size
 
-    def load(s):
-        return im_filenames[s:s + B], cams[s:s + B], gray[s:s + B]
+    array = isinstance(gray, (np.ndarray, torch.Tensor))
+    if array:
+        sizes = [tuple(gray.shape[1:])] * len(gray)
+    else:
+        gray = [torch.as_tensor(f) for f in gray]
+        for i, f in enumerate(gray):
+            if f.dim() != 2 or f.dtype != torch.uint8:
+                raise ValueError(f"estimate_pose_gray: frame {i} is {f.dtype} of shape "
+                                 f"{tuple(f.shape)}, not a 2-D uint8 frame")
+        sizes = [tuple(f.shape) for f in gray]
 
-    loads = [functools.partial(load, s) for s in range(0, len(im_filenames), B)]
+    def load(idx):
+        """One batch: an array's slice (its batches are contiguous), or one
+        stack of a sequence's frames."""
+        files, bcams = [im_filenames[i] for i in idx], [cams[i] for i in idx]
+        if array:
+            return files, bcams, gray[idx[0]:idx[-1] + 1]
+        with timer.phase("stack", stage="feed", host_only=True) as counts:
+            batch = torch.stack([gray[i] for i in idx])
+            counts.update(height=batch.shape[1], width=batch.shape[2], frames=len(idx))
+        return files, bcams, batch
+
+    loads = [functools.partial(load, idx) for idx in _group_batches(sizes, B)]
     return _edges(loads, B, program, timer, verbose)[0]
 
 
@@ -1199,8 +1237,10 @@ def estimate_pose_batched(
     multiple of the ranks, each rank decodes every batch and runs its share
     of it on its own card, and every rank returns the whole dict, in the
     order of a run on one card (vican_tpu/perception.py:1302-1321).
-    Cameras of different resolutions are grouped and their dicts merged, as
-    in the JAX package.  Returns the reference edge dict.
+    Cameras of different resolutions are grouped, as in the JAX package,
+    groups in first-seen order, and every group's batches run in turn
+    through one pipeline: the dict is the union of one call per group.
+    Returns the reference edge dict.
     """
     mode = _resolve_mode(pipeline_mode)
     world = 1
@@ -1216,21 +1256,9 @@ def estimate_pose_batched(
     if any(None in r for r in res_keys):
         res_keys = [r if None not in r else _probe_image_size(fn)
                     for r, fn in zip(res_keys, im_filenames)]
-    if len(set(res_keys)) > 1:
-        groups: dict = {}
-        for key, fn, cam in zip(res_keys, im_filenames, cams):
-            g = groups.setdefault(key, ([], []))
-            g[0].append(fn)
-            g[1].append(cam)
-        out_all: dict = {}
-        for (h, w), (fns, cs) in groups.items():
-            if verbose:
-                print(f"Resolution group {w}x{h}: {len(fns)} images")
-            out_all.update(estimate_pose_batched(
-                fns, cs, aruco, marker_size, corner_refine, brightness, contrast, flags,
-                batch_size=batch_size, lm_iters=lm_iters, detector_params=detector_params,
-                mesh=mesh, pipeline_mode=mode, verbose=verbose, device=device, timer=timer))
-        return out_all
+    if verbose and len(set(res_keys)) > 1:
+        for (h, w), n in Counter(res_keys).items():
+            print(f"Resolution group {w}x{h}: {n} images")
 
     program = _Program(_program_mode(mode, corner_refine), aruco, marker_size,
                        corner_refine, flags, lm_iters, detector_params, device)
@@ -1238,10 +1266,10 @@ def estimate_pose_batched(
     B = -(-batch_size // world) * world
     gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
 
-    def load(start):
+    def load(idx):
         """Decode, check and preprocess one batch (JAX's ``prepare``,
         vican_tpu/perception.py:1325-1363); runs on the feed thread."""
-        files, bcams = im_filenames[start:start + B], cams[start:start + B]
+        files, bcams = [im_filenames[i] for i in idx], [cams[i] for i in idx]
         with timer.phase("decode", stage="feed", host_only=True):
             images = load_images(files, grayscale=gray_direct)
         decl = res_of(bcams[0])
@@ -1259,7 +1287,7 @@ def estimate_pose_batched(
             gray = host_preprocess(images, float(brightness), float(contrast), counts)
         return files, bcams, gray
 
-    loads = [functools.partial(load, s) for s in range(0, len(im_filenames), B)]
+    loads = [functools.partial(load, idx) for idx in _group_batches(res_keys, B)]
     if mesh is None:
         return _edges(loads, B, program, timer, verbose)[0]
     out, order = _edges(loads, B, program, timer, verbose, part=(rank, world))
