@@ -4,6 +4,8 @@ rendered files; the port's renderer against the JAX package's; the port's
 ``Dataset`` against the JAX package's on the rendered directory."""
 import os
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -319,6 +321,80 @@ def test_port_dataset_reads_rendered_directory(rendered):
         assert (ours.resolution_x, ours.resolution_y) == (c.resolution_x, c.resolution_y)
     for t, pose in rendered.object.items():
         np.testing.assert_array_equal(ds.object[t].pose(), pose.pose())
+
+
+def _jpegs(root, sizes):
+    """One colour JPEG (quality 95) a ``(H, W)`` of ``sizes``, each of
+    other content: a gradient turned by its index under seeded noise."""
+    rng = np.random.default_rng(5)
+    files = []
+    for i, (h, w) in enumerate(sizes):
+        y, x = np.mgrid[:h, :w]
+        base = (x * np.cos(i) + y * np.sin(i)) * 255.0 / (h + w)
+        im = np.stack([base, base[::-1], 255 - base], -1) + rng.normal(0, 30, (h, w, 3))
+        files.append(os.path.join(root, f"frame_{i}.jpg"))
+        assert cv.imwrite(files[-1], np.clip(im, 0, 255).astype(np.uint8),
+                          [cv.IMWRITE_JPEG_QUALITY, 95])
+    return files
+
+
+def _decode_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("vican-decode")]
+
+
+@pytest.mark.parametrize("grayscale", [False, True], ids=["colour", "gray"])
+def test_pooled_decode_is_byte_for_byte_one_imread_at_a_time(tmp_path, grayscale):
+    """Nine JPEG files of different content, decoded on the pool of
+    ``load_images`` and by one ``cv.imread`` after another: the same
+    batch, byte for byte, with each flag; no decode thread is left.  The
+    same on a pool of one thread, whose counters read 9 files and 1
+    worker, and on one of more threads than cores."""
+    files = _jpegs(str(tmp_path), [(72, 96)] * 9)
+    flag = cv.IMREAD_GRAYSCALE if grayscale else cv.IMREAD_COLOR
+    ref = np.stack([cv.imread(f, flag) for f in files])
+    assert len({ref[i].tobytes() for i in range(len(files))}) == len(files)
+    out = TP.load_images(files, grayscale=grayscale)
+    assert out.dtype == np.uint8 and out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
+    assert not _decode_threads()
+    # a pool of one thread, then one of more threads than cores switching
+    # every microsecond, where a batch allocated twice would lose frames
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for threads in (1, 2 * len(os.sched_getaffinity(0)) + 1):
+            with ThreadPoolExecutor(threads) as pool:
+                for _ in range(5):
+                    counts = {}
+                    out = TP._decode_batch(pool, files, grayscale, counts)
+                    np.testing.assert_array_equal(out, ref)
+                    assert counts["files"] == 9
+                    assert 1 <= counts["workers"] <= min(threads, 9)
+            assert threads > 1 or counts["workers"] == 1
+    finally:
+        sys.setswitchinterval(interval)
+
+
+@pytest.mark.parametrize("fault", ["two sizes", "missing file"])
+def test_pooled_decode_raises_what_one_imread_at_a_time_raised(tmp_path, fault):
+    """A batch of two frame sizes raises the ValueError of the sequential
+    loader, word for word; a missing file (a later one also of another
+    size) raises FileNotFoundError naming it; no decode thread is left."""
+    files = _jpegs(str(tmp_path), [(72, 96)] * 5 + [(96, 72)] * 4)
+    if fault == "two sizes":
+        shapes = {cv.imread(f, cv.IMREAD_COLOR).shape for f in files}
+        with pytest.raises(ValueError) as err:
+            TP.load_images(files)
+        assert str(err.value) == (
+            f"mixed image shapes in batch: {shapes}. Cameras that declare "
+            "resolution_x/y must match their image files; cameras with "
+            "undeclared resolution are grouped by actual image size "
+            "automatically (see estimate_pose_batched).")
+    else:
+        files[3] = os.path.join(str(tmp_path), "missing.jpg")
+        with pytest.raises(FileNotFoundError, match="could not read image: .*missing.jpg"):
+            TP.load_images(files)
+    assert not _decode_threads()
 
 
 @pytest.mark.parametrize("brightness,contrast", [(-150, 120), (0, 0), (30, -40)])

@@ -26,7 +26,8 @@ from vican_torch.ops.threshold import multi_threshold
 from vican_torch.utils import PhaseTimer
 from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 from test_torch_perception import (KW, MARKER_SIZE, _assert_identical_edges,
-                                   _assert_same_edges, _cams, _port_cams, _traj)
+                                   _assert_same_edges, _cams, _decode_threads, _port_cams,
+                                   _traj)
 from torch_threads import two_threads  # noqa: F401
 
 DRAIN = {"wait for feed", "detect program", "PnP", "dict"}
@@ -116,7 +117,7 @@ def test_wrong_resolution_raises_from_the_worker(rendered):
 def test_missing_file_raises_from_the_worker(rendered):
     """A missing file in the third batch (the first two already fed and
     drained) raises FileNotFoundError from the call, as in the JAX
-    package, and no feed thread is left."""
+    package, and no feed or decode thread is left."""
     files = list(rendered.im_data["filename"])
     files[5] = os.path.join(os.path.dirname(files[5]), "missing.jpg")
     cams = rendered.im_data["cam"]
@@ -126,6 +127,7 @@ def test_missing_file_raises_from_the_worker(rendered):
         TC.estimate_pose_mp(files, _port_cams(cams), marker_ids=None, device="cpu",
                             **dict(KW, batch_size=2))
     assert not _feed_threads()
+    assert not _decode_threads()
 
 
 def test_timer_events_carry_their_stage(rendered):
@@ -204,6 +206,28 @@ def test_every_preprocess_counts_its_table_frames(rendered, batch_size, frames):
                     key=lambda e: e["batch"])
     assert [e["batch"] for e in events] == list(range(len(frames)))
     assert [e["table_frames"] for e in events] == frames
+
+
+@pytest.mark.parametrize("brightness", [-10, 0], ids=["colour", "gray"])
+@pytest.mark.parametrize("batch_size,frames", [(2, [2, 2, 2]), (4, [4, 2])])
+def test_every_decode_counts_its_files_and_workers(rendered, batch_size, frames, brightness):
+    """Every batch's "decode" event counts in ``files`` the batch's frames,
+    the short last one's too, and in ``workers`` the threads that decoded
+    them, between 1 and one a core or a file; colour and straight-to-gray
+    decodes alike, and the call leaves no decode thread behind."""
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    timer = PhaseTimer(verbose=False, trace=True, device="cpu")
+    TP.estimate_pose_batched(files, cams, device="cpu", timer=timer,
+                             **dict(KW, batch_size=batch_size, brightness=brightness,
+                                    contrast=-brightness))
+    events = sorted((e for e in timer.events if e["name"] == "decode"),
+                    key=lambda e: e["batch"])
+    assert [e["batch"] for e in events] == list(range(len(frames)))
+    assert [e["files"] for e in events] == frames
+    cores = len(os.sched_getaffinity(0))
+    assert all(1 <= e["workers"] <= min(cores, e["files"]) for e in events)
+    assert all(e["stage"] == "feed" and e["parent"] is None for e in events)
+    assert not _decode_threads()
 
 
 def test_no_preprocess_without_brightness_or_contrast(rendered):

@@ -67,9 +67,10 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 import time
 from collections import Counter, deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Iterable
 
@@ -129,18 +130,53 @@ def load_images(filenames: Iterable[str], grayscale: bool = False) -> np.ndarray
     the color->gray preprocess is the identity transform anyway.  For
     chroma-subsampled color JPEGs libjpeg's Y channel can differ by +-1
     from cvtColor(BGR2GRAY) of the color decode; every pipeline mode shares
-    this loader, so cross-mode detection equality is unaffected.
+    this loader, so cross-mode detection equality is unaffected.  The files
+    decode on a pool of :func:`_host_threads` threads of its own, made and
+    shut down in the call (:func:`_decode_batch`).
     """
+    files = list(filenames)
+    with ThreadPoolExecutor(_host_threads(len(files)), thread_name_prefix="vican-decode") as pool:
+        return _decode_batch(pool, files, grayscale)
+
+
+def _decode_batch(pool: ThreadPoolExecutor, files: list[str], grayscale: bool,
+                  counts: dict | None = None) -> np.ndarray:
+    """:func:`load_images` of ``files`` on ``pool``: one ``cv.imread`` a
+    file (it releases the GIL), each written into its slot of one batch
+    that the first decoded frame shapes.  Every task ends before the call
+    returns or raises; a file that does not decode raises
+    ``FileNotFoundError`` (the first in the batch's order), then a batch of
+    mixed shapes ``ValueError``.  ``counts`` (a phase's fields) gets
+    ``files`` and ``workers``, the pool's threads that decoded them."""
     import cv2 as cv
 
     flag = cv.IMREAD_GRAYSCALE if grayscale else cv.IMREAD_COLOR
-    ims = []
-    for fn in filenames:
-        im = cv.imread(fn, flag)
+    lock = threading.Lock()
+    batch = None
+
+    def decode(i):
+        nonlocal batch
+        im = cv.imread(files[i], flag)
         if im is None:
+            return None, threading.get_ident()
+        with lock:
+            if batch is None:
+                batch = np.empty((len(files), *im.shape), im.dtype)
+            fits = im.shape == batch.shape[1:]
+        if fits:
+            batch[i] = im
+        return im.shape, threading.get_ident()
+
+    futs = [pool.submit(decode, i) for i in range(len(files))]
+    wait(futs)
+    done = [f.result() for f in futs]
+    if counts is not None:
+        counts["files"] = len(files)
+        counts["workers"] = len({ident for _, ident in done})
+    for fn, (shape, _) in zip(files, done):
+        if shape is None:
             raise FileNotFoundError(f"could not read image: {fn}")
-        ims.append(im)
-    shapes = {im.shape for im in ims}
+    shapes = {shape for shape, _ in done}
     if len(shapes) != 1:
         raise ValueError(
             f"mixed image shapes in batch: {shapes}. Cameras that declare "
@@ -148,7 +184,7 @@ def load_images(filenames: Iterable[str], grayscale: bool = False) -> np.ndarray
             "undeclared resolution are grouped by actual image size "
             "automatically (see estimate_pose_batched)."
         )
-    return np.stack(ims)
+    return batch
 
 
 def _probe_image_size(fn: str) -> tuple[int, int]:
@@ -1240,6 +1276,9 @@ def estimate_pose_batched(
     Cameras of different resolutions are grouped, as in the JAX package,
     groups in first-seen order, and every group's batches run in turn
     through one pipeline: the dict is the union of one call per group.
+    The feed decodes a batch's files on a pool of :func:`_host_threads`
+    threads that the call makes and shuts down (:func:`_decode_batch`; the
+    "decode" phase counts its ``files`` and ``workers``).
     Returns the reference edge dict.
     """
     mode = _resolve_mode(pipeline_mode)
@@ -1268,10 +1307,11 @@ def estimate_pose_batched(
 
     def load(idx):
         """Decode, check and preprocess one batch (JAX's ``prepare``,
-        vican_tpu/perception.py:1325-1363); runs on the feed thread."""
+        vican_tpu/perception.py:1325-1363); runs on the feed thread, its
+        files decoded on ``pool``."""
         files, bcams = [im_filenames[i] for i in idx], [cams[i] for i in idx]
-        with timer.phase("decode", stage="feed", host_only=True):
-            images = load_images(files, grayscale=gray_direct)
+        with timer.phase("decode", stage="feed", host_only=True) as counts:
+            images = _decode_batch(pool, files, gray_direct, counts)
         decl = res_of(bcams[0])
         if None not in decl and tuple(images.shape[1:3]) != decl:
             raise ValueError(
@@ -1288,7 +1328,8 @@ def estimate_pose_batched(
         return files, bcams, gray
 
     loads = [functools.partial(load, idx) for idx in _group_batches(res_keys, B)]
-    if mesh is None:
-        return _edges(loads, B, program, timer, verbose)[0]
-    out, order = _edges(loads, B, program, timer, verbose, part=(rank, world))
+    with ThreadPoolExecutor(_host_threads(B), thread_name_prefix="vican-decode") as pool:
+        if mesh is None:
+            return _edges(loads, B, program, timer, verbose)[0]
+        out, order = _edges(loads, B, program, timer, verbose, part=(rank, world))
     return _gather_edges(mesh, out, order)
