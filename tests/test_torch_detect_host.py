@@ -14,7 +14,7 @@ its ``<<<>>>`` launches stays out) and :data:`RUNNER` runs the kernels
 grid by grid through the source's own ``plan_launches``.  Each case runs
 in a child process under its own timeout, so a barrier that never opens
 (a warp-wide step some lanes skip) fails the test.  The bars are
-``chip_smoke.py``'s: valid, ids and scores identical on every output slot,
+``tests/torch_bars.py``'s: valid, ids and scores identical on every output slot,
 kept corners within ``DETECT_TOL`` px, every slot's within
 ``DETECT_ALL_TOL``.  The kernels' arithmetic is built with
 ``-ffp-contract=off``, as ``nvcc --fmad=false`` builds it on the card.
@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _detect_gaps, _detect_ok
+from torch_bars import detect_gaps, detect_ok
 from torch_threads import two_threads  # noqa: F401
 from vican_torch import perception, render
 from vican_torch.cam import Camera
@@ -336,8 +336,8 @@ def test_detect_kernels_on_the_host_match_plain(host_lib, batch, tmp_path, case,
     out = _run_host(host_lib, tmp_path, frames, quads, valid, areas, codes, params)
     ref = TD.detect_candidates_plain(frames, torch.from_numpy(quads), torch.from_numpy(valid),
                                      torch.from_numpy(areas), codes, 4, params)
-    gaps = _detect_gaps(out, ref)
-    assert _detect_ok(gaps), gaps
+    gaps = detect_gaps(out, ref)
+    assert detect_ok(gaps), gaps
     if case == "no_valid_slot":
         assert gaps["kept"] == 0 and not out.ids.any() and not out.corners.any()
     else:

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PNP_MARKER, PNP_MEDIAN_TOL, PNP_TOL, _detect_gaps, _detect_ok,
-                        _pnp_gaps, pnp_slots)
+from torch_bars import (CELLS, CUBE_KW, MV_REL_TOL, PNP_MARKER, PNP_MEDIAN_TOL, PNP_TOL,
+                        PWR_REL_TOL, detect_gaps, detect_ok, filter_problem, p_first_batch,
+                        pnp_gaps, pnp_slots, rendered_640, thin_mv_cases)
 from vican_torch import bipgo, render
 from vican_torch.cam import Camera
 from vican_torch.geometry import distance_SO3
@@ -67,8 +68,8 @@ def test_cuda_kernel_matches_plain(cuda, n, T, w, design):
     assert out.shape == ref.shape == (n, w) and out.dtype == torch.float32
     err = ((out - ref).abs().max() / ref.abs().max()).item()
     # a float32 sum order other than cuBLAS's may flip the bf16 rounding of
-    # single W entries (chip_smoke.py:kernel_phase); a fault shows at O(1)
-    assert err < 1e-3, err
+    # single W entries (torch_bars.PWR_REL_TOL); a fault shows at O(1)
+    assert err < PWR_REL_TOL, err
     # no atomics, partials summed in a fixed order: bit for bit again
     assert torch.equal(out, pwr_apply(Bt, lbd, X, design=design))
     if design == picked:
@@ -119,8 +120,41 @@ def test_thin_mv_kernel_matches_plain(cuda, M, K, w, aligned):
     assert out.shape == ref.shape == (M, w) and out.dtype == torch.float32
     # the same exact products summed in another float32 order
     err = ((out - ref).abs().max() / ref.abs().max()).item()
-    assert err < 1e-5, err
+    assert err < MV_REL_TOL, err
     assert torch.equal(out, thin_mv(B, X))  # no atomics: bit for bit again
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["B", "C"])
+def test_pwr_kernel_at_a_cells_shape_matches_plain(cuda, cell):
+    """``pwr_apply`` at a large-graph cell's whole shape over 10k timesteps
+    (B: n = 30000, the single read with its largest clusters; C: n = 6144)
+    on an operator built like the route's, w = 1, 10 and 16, in both
+    designs: within PWR_REL_TOL of the plain version, bit for bit again."""
+    Bt, lbd, n, T = filter_problem(cuda, CELLS[cell])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for w in (1, 10, 16):
+        X, _ = torch.linalg.qr(torch.randn((n, w), generator=g, device=cuda))
+        ref = pwr_apply_plain(Bt, lbd, X)
+        for design in ("single", "two"):
+            out = pwr_apply(Bt, lbd, X, design=design)
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            assert err < PWR_REL_TOL and bool(torch.isfinite(out).all()), (w, design, err)
+            assert torch.equal(out, pwr_apply(Bt, lbd, X, design=design))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["probe", "streaming w=10", "streaming w=1", "ragged"])
+def test_thin_mv_kernel_at_full_size_matches_plain(cuda, case):
+    """``thin_mv`` at the streaming regime's whole shape (a symmetric
+    30000^2 operator: 3C at 10k cameras), a ragged 29999 x 30001 and the
+    JAX package's probe (30208 x 31744, w = 128): within MV_REL_TOL of the
+    plain version, bit for bit again."""
+    (_, B, X), = thin_mv_cases(cuda, (case,))
+    out, ref = thin_mv(B, X), thin_mv_plain(B, X)
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err < MV_REL_TOL and bool(torch.isfinite(out).all()), err
+    assert torch.equal(out, thin_mv(B, X))
 
 
 @pytest.mark.gpu
@@ -228,17 +262,8 @@ def test_perception_on_the_card_matches_cpu(cuda):
     """Three frames from the port's renderer: the gray-batch stage on the
     card (the threshold kernel) and on the CPU (its plain version) find the
     same detections."""
-    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
-    cams = {str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
-                           extrinsics=render.look_at(pos, (0, 0, 1.0)),
-                           resolution_x=640, resolution_y=360)
-            for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
-    frames, names, frame_cams = render.render_frames(
-        cams, render.cube_trajectory(1, seed=3), render.make_cube_markers(),
-        marker_size=0.138, device=cuda)
-    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
-              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
-              batch_size=4, verbose=False)
+    frames, names, frame_cams = rendered_640(cuda, 1, 3)
+    kw = dict(CUBE_KW, batch_size=4)
     before = multi_threshold.launches
     gpu = estimate_pose_gray(frames, names, frame_cams, **kw)
     assert multi_threshold.launches == before + 1
@@ -255,24 +280,12 @@ def test_perception_modes_on_the_card_agree(cuda, pad):
     """The host mode (host threshold, the kernel not launched) gives the
     device mode's detections on the card, at the frames' width and at a
     ragged one (W % 8 != 0: the kernel's bits past W are zero)."""
-    import torch.nn.functional as F
-
     from vican_torch import perception
 
-    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
-    cams = {str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
-                           extrinsics=render.look_at(pos, (0, 0, 1.0)),
-                           resolution_x=640, resolution_y=360)
-            for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
-    frames, names, frame_cams = render.render_frames(
-        cams, render.cube_trajectory(2, seed=5), render.make_cube_markers(),
-        marker_size=0.138, device=cuda)
-    frames = F.pad(frames.float(), (0, pad), mode="replicate").to(torch.uint8)
-    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
-              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
-              batch_size=4, verbose=False)
+    frames, names, frame_cams = rendered_640(cuda, 2, 5, pad)
+    kw = dict(CUBE_KW, batch_size=4)
     before = multi_threshold.launches
-    dev = estimate_pose_gray(frames.contiguous(), names, frame_cams, pipeline_mode="device", **kw)
+    dev = estimate_pose_gray(frames, names, frame_cams, pipeline_mode="device", **kw)
     assert multi_threshold.launches == before + 2 and perception.last_labeler == "c"
     host = estimate_pose_gray(frames.cpu().numpy(), names, frame_cams, pipeline_mode="host",
                               **kw)
@@ -348,9 +361,7 @@ def test_tutorial_flow_on_the_card(cuda):
 
     markers = render.make_cube_markers()
     ids = {str(i) for i in range(24)}
-    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
-              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
-              batch_size=32, verbose=False)
+    kw = dict(CUBE_KW, batch_size=32)
 
     def detect(cams, traj):
         frames, names, frame_cams = render.render_frames(cams, traj, markers, marker_size=0.138,
@@ -409,24 +420,6 @@ def test_detect_and_draw_on_the_card(cuda, tmp_path, capsys):
     np.testing.assert_array_equal(card, cpu)
 
 
-def _rendered_640(cuda, timesteps, seed, pad=0, aruco="DICT_4X4_1000"):
-    """The cube of ``aruco`` markers seen by three cameras at 640x360
-    (``pad`` replicated columns more), rendered on the card: ``(frames,
-    names, frame_cams)``."""
-    import torch.nn.functional as F
-
-    K = np.array([[420.0, 0, 320], [0, 420.0, 180], [0, 0, 1]])
-    cams = {str(i): Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
-                           extrinsics=render.look_at(pos, (0, 0, 1.0)),
-                           resolution_x=640, resolution_y=360)
-            for i, pos in enumerate([(2.4, 0, 1.2), (0, 2.4, 1.4), (-2.4, 0.5, 1.0)])}
-    frames, names, frame_cams = render.render_frames(
-        cams, render.cube_trajectory(timesteps, seed=seed), render.make_cube_markers(aruco),
-        aruco, marker_size=0.138, device=cuda)
-    frames = F.pad(frames.float(), (0, pad), mode="replicate").to(torch.uint8).contiguous()
-    return frames, names, frame_cams
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("pad", [0, 3], ids=["W=640", "W=643"])
 def test_pure_mode_on_the_card_matches_cpu(cuda, pad):
@@ -434,11 +427,9 @@ def test_pure_mode_on_the_card_matches_cpu(cuda, pad):
     components, candidates and re-fit on the card) against the CPU on 4
     frames, at the frames' width and a ragged one: the same keys, corners
     within 1e-3 px; one kernel launch per batch."""
-    frames, names, frame_cams = _rendered_640(cuda, 2, 7, pad)
+    frames, names, frame_cams = rendered_640(cuda, 2, 7, pad)
     frames, names, frame_cams = frames[:4], names[:4], frame_cams[:4]
-    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
-              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
-              batch_size=4, verbose=False, pipeline_mode="pure")
+    kw = dict(CUBE_KW, batch_size=4, pipeline_mode="pure")
     before = multi_threshold.launches
     card = estimate_pose_gray(frames, names, frame_cams, **kw)
     assert multi_threshold.launches == before + 1
@@ -455,7 +446,7 @@ def test_detect_markers_on_the_card_matches_cpu(cuda):
     from vican_torch.ops import detect as D
     from vican_torch.ops.dictionary import marker_bits_table
 
-    frames, _, _ = _rendered_640(cuda, 1, 9)
+    frames, _, _ = rendered_640(cuda, 1, 9)
     params = D.resolve_error_correction(D.DetectorParams(), "DICT_4X4_1000")
     table = marker_bits_table("DICT_4X4_1000")
     before = multi_threshold.launches
@@ -478,10 +469,8 @@ def test_pipeline_on_the_card_equals_depth_one(cuda, monkeypatch):
     of its own, not the caller's."""
     from vican_torch.ops import threshold
 
-    frames, names, frame_cams = _rendered_640(cuda, 2, 7)
-    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
-              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
-              batch_size=2, verbose=False)
+    frames, names, frame_cams = rendered_640(cuda, 2, 7)
+    kw = dict(CUBE_KW, batch_size=2)
     seen = []
     real = threshold.multi_threshold
 
@@ -505,14 +494,97 @@ def test_pipeline_on_the_card_equals_depth_one(cuda, monkeypatch):
         np.testing.assert_array_equal(piped[k]["pose"].pose(), one[k]["pose"].pose())
 
 
+@pytest.fixture(scope="module")
+def scene():
+    """:func:`torch_bars.rendered_640`'s six frames (2 timesteps, seed 7),
+    rendered once for the tests that share them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    return rendered_640(torch.device("cuda"), 2, 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,thresholds", [("device", 3), ("auto", 3), ("host", 0),
+                                             ("roi", 0), ("pure", 3)])
+def test_every_mode_launches_detect_and_pnp_once_a_batch(scene, mode, thresholds):
+    """Six frames from host arrays in batches of 2, in each pipeline mode:
+    one detect and one PnP launch a batch, the threshold kernel's launches
+    the mode's, the C labeler and gates wherever the host labels; host,
+    roi and auto give the device mode's keys, corners within the
+    card-vs-CPU bar (pure differs as the JAX package's pure mode does)."""
+    from vican_torch import perception
+    from vican_torch.ops import detect, pnp
+
+    frames, names, frame_cams = scene
+    gray = frames.cpu().numpy()
+    kw = dict(CUBE_KW, batch_size=2)
+    ref = estimate_pose_gray(gray, names, frame_cams, **kw)
+    perception.last_labeler = perception.last_gates = None
+
+    def launches():
+        return multi_threshold.launches, detect.detect_candidates.launches, pnp.pnp_block.launches
+
+    before = launches()
+    edges = estimate_pose_gray(gray, names, frame_cams, pipeline_mode=mode, **kw)
+    assert tuple(a - b for a, b in zip(launches(), before)) == (thresholds, 3, 3)
+    assert len(edges) > 5
+    if mode != "pure":
+        assert (perception.last_labeler, perception.last_gates) == ("c", "c")
+        assert list(edges) == list(ref)
+        for k in ref:
+            np.testing.assert_allclose(edges[k]["corners"], ref[k]["corners"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_the_detect_program_makes_no_host_sync(scene):
+    """A warm call of the detect kernels at every refine kind queues its
+    work and returns: one launch, and no synchronization under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from vican_torch.ops import detect as D
+
+    frames = scene[0]
+    params = D.resolve_error_correction(D.DetectorParams(), "DICT_4X4_1000")
+    args = _detect_inputs(frames.device, frames, params)
+    for refine in ("apriltag", "subpix", "none"):
+        p = params._replace(corner_refine=refine)
+        D.detect_candidates(frames, *args, 4, p)
+        torch.cuda.synchronize()
+        before = D.detect_candidates.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            D.detect_candidates(frames, *args, 4, p)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert D.detect_candidates.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_the_c_modules_build_and_pack_a_card_solve(cuda):
+    """The edge packer, the labeler and the host threshold build with the
+    card machine's compiler, and a solve on the card packs in C."""
+    from vican_torch import _native
+    from vican_torch.solver import packing
+
+    assert all(getattr(_native, f"get_{n}")() is not None
+               for n in ("fastpack", "fastccl", "fastthresh")), _native.build_errors
+    prob = make_problem_arrays(seed=13, n_cams=40, n_times=256, n_markers=8,
+                               n_edges=6000, kappa_r=1e5, sigma_t=1e-4)
+    bipgo.bipartite_se3sync(prob.edges, prob.constraints(), lambda e: 1.0, lambda e: 1.0,
+                            lambda e: True, maxiter=4, verbose=False)
+    assert packing.last_packer == "c"
+
+
 MESH_CHILD = r"""
-import json, os, sys
+import json, os, sys, tempfile
 import numpy as np
-sys.path.insert(0, sys.argv[1])
-os.environ["VICAN_TPU_SCALE_MIN_CAMS"] = "16"  # the large-graph route at 64 cameras
+sys.path[:0] = [sys.argv[1], os.path.join(sys.argv[1], "tests")]
 import torch.distributed as dist
-from vican_torch import bipgo
-from vican_torch.parallel import init_distributed, make_mesh
+from torch_bars import CUBE_KW, rendered_640
+from vican_torch import bipgo, perception
+from vican_torch.cam import estimate_pose_mp
+from vican_torch.ops import detect, pnp
+from vican_torch.parallel import init_distributed, make_mesh, se3sync_sharded
+from vican_torch.solver.packing import pack_problem
 from vican_torch.solver.pwr import pwr_apply
 from vican_torch.synthetic import make_problem_arrays
 
@@ -520,9 +592,11 @@ init_distributed()
 mesh = make_mesh()
 prob = make_problem_arrays(seed=3, n_cams=64, n_times=400, n_edges=6000)
 out = {"backend": dist.get_backend(), "world": mesh.size()}
+one, every = (lambda e: 1.0), (lambda e: True)
+os.environ["VICAN_TPU_SCALE_MIN_CAMS"] = "16"  # the large-graph route at 64 cameras
 for dtype in (np.float64, np.float32):
-    kw = dict(noise_model_r=lambda e: 1.0, noise_model_t=lambda e: 1.0,
-              edge_filter=lambda e: True, maxiter=4, dtype=dtype, verbose=False)
+    kw = dict(noise_model_r=one, noise_model_t=one, edge_filter=every, maxiter=4, dtype=dtype,
+              verbose=False)
     pwr_apply.launches = 0
     sharded = bipgo.bipartite_se3sync(prob.edges, prob.constraints(), mesh=mesh, **kw)
     launches = pwr_apply.launches
@@ -531,36 +605,102 @@ for dtype in (np.float64, np.float32):
         "launches": launches,
         "rot": max(float(np.abs(sharded[k].R() - single[k].R()).max()) for k in single),
         "t": max(float(np.abs(sharded[k].t() - single[k].t()).max()) for k in single)}
+del os.environ["VICAN_TPU_SCALE_MIN_CAMS"]
+
+# the dense route's whole SE(3) sync, the edges split over the mesh
+p = pack_problem(prob.edges, prob.constraints(), one, one, every, dtype=np.float64)
+r_cam, _, t_est, res = se3sync_sharded(p, maxiter=4, mesh=mesh, dtype=np.float64)
+single = bipgo.bipartite_se3sync(prob.edges, prob.constraints(), one, one, every, maxiter=4,
+                                 dtype=np.float64, verbose=False)
+out["se3sync_sharded"] = {
+    "residual": res,
+    "rot": max(float(np.abs(r_cam[i] - single[c].R()).max()) for i, c in enumerate(p.cam_ids)),
+    "t": max(float(np.abs(t_est[i] - single[c].t()).max()) for i, c in enumerate(p.cam_ids))}
+
+# perception from JPEG files (written by OpenCV), each rank a share of every batch
+try:
+    import cv2
+except ImportError:
+    cv2 = None
+out["perception"] = None
+if cv2 is not None:
+    frames, names, frame_cams = rendered_640("cuda", 2, 7)
+    pkw = dict(CUBE_KW, brightness=0, contrast=0, marker_ids=None, batch_size=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, n.replace("/", "_")) for n in names]
+        assert all(cv2.imwrite(f, img) for f, img in zip(files, frames.cpu().numpy()))
+        pnp.pnp_block.launches = detect.detect_candidates.launches = 0
+        sharded = estimate_pose_mp(files, frame_cams, mesh=mesh, **pkw)
+        launches = [pnp.pnp_block.launches, detect.detect_candidates.launches]
+        host = [perception.last_labeler, perception.last_gates]
+        single = estimate_pose_mp(files, frame_cams, **pkw)
+    out["perception"] = {
+        "detections": len(single), "launches": launches, "host": host,
+        "identical": list(sharded) == list(single) and all(
+            np.array_equal(sharded[k]["corners"], v["corners"])
+            and np.array_equal(sharded[k]["pose"].pose(), v["pose"].pose())
+            for k, v in single.items())}
 dist.destroy_process_group()
 print(json.dumps(out))
 """
 
 
-@pytest.mark.gpu
-def test_mesh_large_route_over_nccl_matches_single(cuda, tmp_path):
-    """``bipartite_se3sync(mesh=make_mesh())`` over NCCL at world size 1 in a
-    child process of its own (its own timeout ends the process group):
-    float64 rotations equal to ``mesh=None`` within 1e-9 (entries),
-    translations within the CG tolerance of tests/test_sharded.py (1e-3 m:
-    the relative-residual stop may fall one iteration apart); in float32
-    the sharded filter launches ``pwr_apply``."""
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """:data:`MESH_CHILD`'s results: a world of one rank over NCCL, in a
+    child process of its own (its own timeout ends the process group)."""
     import json
     import os
     import subprocess
     import sys
 
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs only there")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    script = tmp_path / "mesh_child.py"
+    script = tmp_path_factory.mktemp("mesh") / "mesh_child.py"
     script.write_text(MESH_CHILD)
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     proc = subprocess.run([sys.executable, str(script), repo], capture_output=True, text=True,
-                          env=env, timeout=300)
+                          env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert (out["backend"], out["world"]) == ("nccl", 1)
+    return out
+
+
+@pytest.mark.gpu
+def test_mesh_large_route_over_nccl_matches_single(mesh_run):
+    """``bipartite_se3sync(mesh=make_mesh())`` at world size 1: float64
+    rotations equal to ``mesh=None`` within 1e-9 (entries), translations
+    within the CG tolerance of tests/test_sharded.py (1e-3 m: the
+    relative-residual stop may fall one iteration apart); in float32 the
+    sharded filter launches ``pwr_apply``."""
+    out = mesh_run
     assert out["float64"]["rot"] < 1e-9 and out["float64"]["t"] < 1e-3, out
     assert out["float32"]["launches"] > 0 and out["float64"]["launches"] == 0, out
+
+
+@pytest.mark.gpu
+def test_se3sync_sharded_over_nccl_matches_single(mesh_run):
+    """``se3sync_sharded`` at world size 1 against ``bipartite_se3sync`` in
+    float64, at tests/test_sharded.py:55-61's bars: rotations 1e-6 (the
+    single run's poses pass through float32), translations 1e-3 m, CG
+    residual below 1e-3."""
+    s = mesh_run["se3sync_sharded"]
+    assert s["residual"] < 1e-3 and s["rot"] < 1e-6 and s["t"] < 1e-3, s
+
+
+@pytest.mark.gpu
+def test_perception_with_a_mesh_over_nccl_matches_single(mesh_run):
+    """``estimate_pose_mp(mesh=...)`` at world size 1 on six files gives
+    ``mesh=None``'s edges bit for bit, one PnP and one detect launch a
+    batch, candidates from the C labeler and gates."""
+    p = mesh_run["perception"]
+    if p is None:
+        pytest.skip("needs OpenCV to write the frames as files")
+    assert p["identical"] and p["detections"] > 5, p
+    assert p["launches"] == [3, 3] and p["host"] == ["c", "c"], p
 
 
 @pytest.mark.gpu
@@ -568,9 +708,9 @@ def test_mesh_large_route_over_nccl_matches_single(cuda, tmp_path):
 @pytest.mark.parametrize("distorted", [False, True])
 def test_pnp_kernel_matches_plain(cuda, method, distorted):
     """The PnP kernel (csrc/pnp.cu) against ``pnp_block_plain`` on the card
-    at P's shape, 32 cameras x 24 slots of chip_smoke.py's seeded scene:
+    at P's shape, 32 cameras x 24 slots of ``torch_bars.pnp_slots``:
     ``ok``, corners and ids identical, slots that are not valid zero past
-    their id, poses and errors within chip_smoke.py's float64 bars (where
+    their id, poses and errors within torch_bars' float64 bars (where
     their reason is given); one launch."""
     args = pnp_slots(32, 24, 3 + distorted, distorted, cuda)
     pnp_block.launches = 0
@@ -578,7 +718,7 @@ def test_pnp_kernel_matches_plain(cuda, method, distorted):
     torch.cuda.synchronize()
     assert pnp_block.launches == 1
     ref = pnp_block_plain(*args, PNP_MARKER, 20, method)
-    gaps = _pnp_gaps(out, ref)
+    gaps = pnp_gaps(out, ref)
     assert gaps["same_ok"] and gaps["same_head"] and gaps["same_zeros"], gaps
     assert gaps["ok"] > 400, gaps
     assert max(gaps["R"], gaps["t"], gaps["err"]) <= PNP_TOL, gaps
@@ -597,7 +737,7 @@ def _assert_pnp_edge(out, ref):
     assert (o[zero, 9:] == 0).all()
     ok = r[:, 9] > 0.5
     if ok.any():
-        gaps = _pnp_gaps(out, ref)
+        gaps = pnp_gaps(out, ref)
         assert max(gaps["R"], gaps["t"], gaps["err"]) <= PNP_TOL, gaps
         assert max(gaps["R_median"], gaps["t_median"]) <= PNP_MEDIAN_TOL, gaps
     failed = ~ok & ~zero
@@ -671,10 +811,8 @@ def test_a_capture_times_its_kernels_and_adds_one_wait_a_batch(cuda, monkeypatch
     the seven phases a batch that synchronized before, and "candidates
     upload", whose end comes just before that of "host candidates" around
     it."""
-    frames, names, frame_cams = _rendered_640(cuda, 2, 7)
-    kw = dict(aruco="DICT_4X4_1000", marker_size=0.138,
-              corner_refine="CORNER_REFINE_APRILTAG", flags="SOLVEPNP_IPPE_SQUARE",
-              batch_size=2, verbose=False)
+    frames, names, frame_cams = rendered_640(cuda, 2, 7)
+    kw = dict(CUBE_KW, batch_size=2)
     estimate_pose_gray(frames, names, frame_cams, **kw)  # builds and loads the kernels
     syncs = _count_synchronizations(monkeypatch)
     timer = PhaseTimer(verbose=False, device=cuda)
@@ -750,7 +888,7 @@ def _marker_grid(n: int) -> np.ndarray:
 
 def _assert_detect_matches_plain(frames, quads, valid, areas, codes, params, n_bits=4):
     """One launch of the detect kernels against ``detect_candidates_plain``
-    on the same card tensors, at chip_smoke.py's bars: valid, ids and
+    on the same card tensors, at torch_bars' bars: valid, ids and
     scores identical on every slot, the kept corners within DETECT_TOL px.
     Returns the gaps (printed: the max corner gap is the report)."""
     from vican_torch.ops import detect as D
@@ -760,10 +898,62 @@ def _assert_detect_matches_plain(frames, quads, valid, areas, codes, params, n_b
     torch.cuda.synchronize()
     assert D.detect_candidates.launches == before + 1
     ref = D.detect_candidates_plain(frames, quads, valid, areas, codes, n_bits, params)
-    gaps = _detect_gaps(out, ref)
+    gaps = detect_gaps(out, ref)
     print(params.corner_refine, gaps)
-    assert _detect_ok(gaps), gaps
+    assert detect_ok(gaps), gaps
     return gaps, out
+
+
+@pytest.fixture(scope="module")
+def p_batch():
+    """P's first batch (:func:`torch_bars.p_first_batch`): 32 frames of
+    1280x720, two cameras distorted, the shape the room cells feed, and the
+    detect and PnP arguments the pipeline made of it; rendered once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return p_first_batch(torch.device("cuda"))
+
+
+@pytest.mark.gpu
+def test_threshold_kernel_on_p_first_batch_matches_plain(p_batch):
+    """The threshold kernel on P's 32x720x1280 frames at the detector's
+    windows and constant: 0 bytes differ from the plain version."""
+    frames, p = p_batch[0], p_batch[1][-1]
+    assert tuple(frames.shape) == (32, 720, 1280)
+    out = multi_threshold(frames, p.win_sizes, p.thresh_const)
+    assert int((out != multi_threshold_plain(frames, p.win_sizes, p.thresh_const)).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", ["apriltag", "subpix", "none"])
+def test_detect_kernels_on_p_first_batch_match_plain(p_batch, refine):
+    """The detect kernels on P's first batch as the drain hands it over,
+    at each refine kind: one launch, the bars of ``torch_bars.detect_ok``."""
+    gray, quads, valid, areas, codes, n_bits, params = p_batch[1]
+    quads, valid, areas = (torch.as_tensor(x, device=gray.device) for x in (quads, valid, areas))
+    assert tuple(gray.shape) == (32, 720, 1280)
+    gaps, _ = _assert_detect_matches_plain(gray, quads, valid, areas, codes,
+                                           params._replace(corner_refine=refine), n_bits)
+    assert gaps["kept"] > 100, gaps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["ippe_square", "iterative"])
+def test_pnp_kernel_on_p_first_batch_matches_plain(p_batch, method):
+    """The PnP kernel on P's first batch of detections, two cameras
+    distorted, in both methods: one launch, ``ok``, corners and ids
+    identical, poses and errors within PNP_TOL, medians within
+    PNP_MEDIAN_TOL."""
+    corners, ids, valid, Ks, dists, size, iters, _ = p_batch[2]
+    before = pnp_block.launches
+    out = pnp_block(corners, ids, valid, Ks, dists, size, iters, method)
+    torch.cuda.synchronize()
+    assert pnp_block.launches == before + 1
+    gaps = pnp_gaps(out, pnp_block_plain(corners, ids, valid, Ks, dists, size, iters, method))
+    assert gaps["same_ok"] and gaps["same_head"] and gaps["same_zeros"], gaps
+    assert gaps["ok"] > 100, gaps
+    assert max(gaps["R"], gaps["t"], gaps["err"]) <= PNP_TOL, gaps
+    assert max(gaps["R_median"], gaps["t_median"]) <= PNP_MEDIAN_TOL, gaps
 
 
 @pytest.mark.gpu
@@ -776,7 +966,7 @@ def test_detect_kernels_match_plain(cuda, refine, pad):
     take, raise."""
     from vican_torch.ops import detect as D
 
-    frames = _rendered_640(cuda, 2, 7, pad)[0]
+    frames = rendered_640(cuda, 2, 7, pad)[0]
     params = D.resolve_error_correction(D.DetectorParams(corner_refine=refine), "DICT_4X4_1000")
     args = _detect_inputs(cuda, frames, params)
     gaps, out = _assert_detect_matches_plain(frames, *args, params)
@@ -800,7 +990,7 @@ def test_detect_kernels_edge_cases_match_plain(cuda, case):
     if case == "over_24_survivors":
         frames = torch.from_numpy(np.stack([_marker_grid(40), _marker_grid(33)])).to(cuda)
     else:
-        frames = _rendered_640(cuda, 2, 7)[0]
+        frames = rendered_640(cuda, 2, 7)[0]
     quads, valid, areas, codes = _detect_inputs(cuda, frames, params)
     if case == "no_valid_slot":
         valid = torch.zeros_like(valid)
@@ -830,7 +1020,7 @@ def test_detect_kernels_7x7_match_plain(cuda, samples):
     from vican_torch.ops import detect as D
 
     aruco = "DICT_7X7_1000"
-    frames = _rendered_640(cuda, 1, 7, aruco=aruco)[0]
+    frames = rendered_640(cuda, 1, 7, aruco=aruco)[0]
     params = D.resolve_error_correction(D.DetectorParams(decode_samples=samples), aruco)
     quads, valid, areas, codes = _detect_inputs(cuda, frames, params, aruco)
     assert bool(valid.any())
@@ -850,7 +1040,7 @@ def test_detect_warp_design_edges_match_plain(cuda, case):
     from vican_torch.ops import detect as D
 
     params = D.resolve_error_correction(D.DetectorParams(), "DICT_4X4_1000")
-    frames = _rendered_640(cuda, 2, 7)[0]
+    frames = rendered_640(cuda, 2, 7)[0]
     if case == "q_161":
         frames = frames[:3].contiguous()
         params = params._replace(max_candidates=15)

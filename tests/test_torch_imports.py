@@ -1,9 +1,9 @@
 """The port stands alone: importing it, its solver, its perception, its
 dataset loaders, its evaluation, serialization and plot modules, its
 parallel package, every member of its lazy ``__all__``, building its C
-modules and importing the chip smoke test pulls in neither JAX nor the JAX
-package (checked in a fresh interpreter, since this test process has both
-loaded)."""
+modules and importing the card tests' bars and the kernel tools pulls in
+neither JAX nor the JAX package (checked in a fresh interpreter, since this
+test process has both loaded)."""
 import os
 import subprocess
 import sys
@@ -30,13 +30,15 @@ def test_port_imports_neither_jax_nor_vican_tpu():
         "    getattr(vican_torch, name)\n"
         "import vican_torch.ops.detect, vican_torch.ops.pnp, vican_torch.ops.threshold\n"
         "import vican_torch.parallel, vican_torch.parallel.mesh, vican_torch.parallel.sharded\n"
-        "import chip_smoke\n"
+        "import torch_bars\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import kernel_times, detect_sweep\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vican_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

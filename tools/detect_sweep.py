@@ -1,5 +1,5 @@
 """Time versions of the detect kernels' source against each other on the
-card, in one process, on the smoke's perception batch.
+card, in one process, on P's first batch (``tests/torch_bars.py``).
 
     python3 tools/detect_sweep.py NAME=path/to/detect.cu ... [--reps N]
 
@@ -7,15 +7,16 @@ Each NAME=path is a version of ``vican_torch/csrc/detect.cu`` with the same
 C entry (``detect_candidates_f64``): this checkout's, an older checkout's,
 or an edit of it.  The script builds them all with the flags
 ``vican_torch/_kernels.py`` gives ``detect.cu`` (one ``nvcc`` each, all
-started together, into ``vican_torch/_build/sweep/``), renders the first 32
-frames of ``chip_smoke.py``'s perception scene and captures P's first
-detect batch, then, with each version's library in place of the wrapper's:
-checks it against ``detect_candidates_plain`` at each refine kind
-(``chip_smoke._detect_ok``'s bars), and times it by ``chip_smoke._device_ms``
-at each kind and on the one-valid-slot batches of
-``chip_smoke._one_slot_batches``, ``--reps`` rounds (3 by default) in turns
-(forward, then backward), with each kernel's device time (``_detect_split``)
-and its ptxas registers, stack and spills.  A version that defines
+started together, into ``vican_torch/_build/sweep/``), renders P's first 32
+frames and captures their detect batch (``torch_bars.p_first_batch``),
+then, with each version's library in place of the wrapper's: checks it
+against ``detect_candidates_plain`` at each refine kind
+(``tests/torch_bars.detect_ok``'s bars), and times it by
+``kernel_times.device_ms`` at each kind and on the one-valid-slot batches
+of ``kernel_times.one_slot_batches``, ``--reps`` rounds (3 by default) in
+turns (forward, then backward), with each kernel's device time
+(``kernel_times.kernel_split``) and its ptxas registers, stack and
+spills.  A version that defines
 ``detect_clock_read(void*)`` and ``detect_clock_reset()`` (a ``__device__``
 ``long long [8192 * 16]`` of ``clock64()`` stamps, slot by slot, stamp 0 at
 the slot's start, 1 after refine, 2 after the homography, 3-7 after the first
@@ -31,7 +32,8 @@ import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import kernel_times as kt
+
 PHASES = {"refine": (0, 1), "lu": (1, 2), "a1_sample": (2, 3), "a1_hist": (3, 4),
           "a1_otsu": (4, 5), "a1_cells": (5, 6), "a1_dictionary": (6, 7),
           "a2_sample": (7, 8), "a2_hist": (8, 9), "a2_otsu": (9, 10), "a2_cells": (10, 11),
@@ -41,7 +43,6 @@ KINDS = ("apriltag", "subpix", "none")
 
 def build(versions: dict) -> tuple[dict, dict]:
     """Each version's library (argtypes set) and its kernels' ptxas report."""
-    from chip_smoke import _ptxas_functions
     from vican_torch import _kernels
 
     out_dir = os.path.join(_kernels.BUILD, "sweep")
@@ -67,7 +68,7 @@ def build(versions: dict) -> tuple[dict, dict]:
         libs[name] = lib
         ptxas[name] = {("slots" if "slots" in k else "dedup"): {
             x: v.get(x) for x in ("registers", "stack_frame", "spill_stores", "spill_loads")}
-            for k, v in _ptxas_functions(log).items() if v["kernel"]}
+            for k, v in kt.ptxas_kernels(log).items()}
     return libs, ptxas
 
 
@@ -93,11 +94,10 @@ def clock_phases(lib, run, valid) -> dict:
 
 
 def main() -> None:
-    sys.path.insert(0, REPO)
     import numpy as np
     import torch
 
-    import chip_smoke as cs
+    from torch_bars import detect_gaps, detect_ok, p_first_batch
     from vican_torch import _kernels
     from vican_torch.ops import detect as TD
 
@@ -106,13 +106,10 @@ def main() -> None:
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     _kernels.build(["threshold", "pnp", "detect"])
-    cs._build_native()
     libs, ptxas = build(versions)
-    frames, names, frame_cams = cs.perception_scene(dev, 32 // 8)[3:]
-    gray, quads, valid, areas, codes, n_bits, params = cs.capture_detect_batch(
-        frames.cpu().numpy(), names, frame_cams)
+    gray, quads, valid, areas, codes, n_bits, params = p_first_batch(dev)[1]
     quads, valid, areas = (torch.as_tensor(x, device=dev) for x in (quads, valid, areas))
-    ones = cs._one_slot_batches(gray, quads, valid, codes, n_bits, params)
+    ones = kt.one_slot_batches(gray, quads, valid, codes, n_bits, params)
     print(json.dumps({"built_s": time.perf_counter() - t0, "valid_slots": int(valid.sum()),
                       "ptxas": ptxas}), flush=True)
 
@@ -126,8 +123,8 @@ def main() -> None:
         _kernels._libs["detect"] = lib
         gaps = {}
         for k, p in kinds.items():
-            g = cs._detect_gaps(run(p), refs[k])
-            gaps[k] = dict(ok=cs._detect_ok(g), corners=g["corners"], corners_all=g["corners_all"])
+            g = detect_gaps(run(p), refs[k])
+            gaps[k] = dict(ok=detect_ok(g), corners=g["corners"], corners_all=g["corners_all"])
         print(json.dumps({"version": name, "gaps": gaps}), flush=True)
     times = {n: {} for n in libs}
     order = list(libs)
@@ -135,16 +132,16 @@ def main() -> None:
         for name in order if r % 2 == 0 else order[::-1]:
             _kernels._libs["detect"] = libs[name]
             for k, p in kinds.items():
-                times[name].setdefault(k, []).append(cs._device_ms(lambda p=p: run(p)))
+                times[name].setdefault(k, []).append(kt.device_ms(lambda p=p: run(p)))
             for case, one in ones.items():
                 times[name].setdefault("one_" + case, []).append(
-                    cs._device_ms(lambda one=one: run(params, one)))
+                    kt.device_ms(lambda one=one: run(params, one)))
     for name in order:
         _kernels._libs["detect"] = libs[name]
         print(json.dumps({"version": name,
                           "median_ms": {k: float(np.median(v)) for k, v in times[name].items()},
                           "ms": times[name], "ptxas": ptxas[name],
-                          "split": {k: cs._detect_split(lambda p=p: run(p))
+                          "split": {k: kt.kernel_split(lambda p=p: run(p))
                                     for k, p in kinds.items()}}), flush=True)
         if hasattr(libs[name], "detect_clock_read"):
             cases = [("batch", k, valid) for k in KINDS] + [

@@ -79,7 +79,7 @@
 // ~2.2e4 (640 bilinear probes and the fits) and ~4.5e4 an attempt of 900
 // samples, plus up to 4000 popcounts; the smoke's first batch of P holds
 // 2842 valid slots of 5376, 1334 of them taking the second attempt:
-// ~2.6e8 operations, ~7.6 us at 34 TFLOP/s (chip_smoke.py:_detect_work),
+// ~2.6e8 operations, ~7.6 us at 34 TFLOP/s (tools/kernel_times.py:detect_work),
 // with ~23 MB of operands.  No design reaches that: a slot is a dependent
 // chain (the LU's 8 pivot steps and 8 back substitutions, each with its
 // division; ~36 samples a lane an attempt, each a division and a gather;

@@ -36,7 +36,7 @@
 // numbers.
 //
 // What bounds it: operations, in float64: ~7.4e4 a valid slot for IPPE
-// with 20 LM trips, ~1.4e5 for the iterative method (chip_smoke.py's
+// with 20 LM trips, ~1.4e5 for the iterative method (tools/kernel_times.py's
 // PNP_FLOPS tallies them); a slot that is not valid costs nothing.  P's
 // first 32-frame batch holds 256 valid slots of 768: ~1.9e7 operations,
 // ~0.55 us at the H100's 34 TFLOP/s; its ~0.2 MB of operands take ~0.06

@@ -44,7 +44,7 @@ SMEM = 72 * (BAND + 2 * HALO + 4) * 4 + 3 * STEP_ROWS * (BAND + 2 * HALO + 16)
 SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
 CTAS_PER_SM = 2       # two blocks of SMEM fit an SM's 228 KB
 # output rows per CTA: the fastest of nine cuts at 32 x 720 x 1280 on an
-# H100, within 1.3% of 256 (chip_smoke.py --threshold: threshold_sweep)
+# H100, within 1.3% of 256 (timed through the wrapper's ``rows`` override)
 SEGMENT_ROWS = 3 * STEP_ROWS
 
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)

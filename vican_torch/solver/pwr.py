@@ -82,7 +82,7 @@ def pwr_plan(n: int, T: int, w: int, sms: int = 132, design: str | None = None,
     ``w`` on ``sms`` SMs: the single read wherever
     :func:`~.tiles.single_plan` fits ``n`` (``n <= 30720``), else the two
     reads, whose phases hold ``occupancy`` blocks per SM; ``design``
-    forces one of them (the card tests and ``chip_smoke.py`` time both on
+    forces one of them (the card tests hold both to the plain version at
     one shape)."""
     if design not in (None, "single", "two"):
         raise ValueError(f"pwr_plan: design {design!r}")
