@@ -380,7 +380,7 @@ def test_the_times_buffer_leaves_bytes_and_counters_alone(masks, monkeypatch):
     """The optional times buffer of the gated batch entry: the same bytes
     and re-fit counters as without it, the threads' ticks in the labeler
     and in the gates, no more than the threads times the call's own ticks,
-    and the threads that ran; through
+    the threads that ran and the runs labeled; through
     ``quads_from_packed_masks(counters=...)``, :data:`gate_counts` keeps its
     keys and adds the same values as a call without counters."""
     packed, H, W = masks
@@ -390,7 +390,7 @@ def test_the_times_buffer_leaves_bytes_and_counters_alone(masks, monkeypatch):
     areas = np.empty((B, Wn * KS), np.float32)
     valid = np.empty((B, Wn * KS), bool)
     stats = np.empty(len(TP.GATE_COUNTS), np.int64)
-    times = np.full(4, -1.0)
+    times = np.full(5, -1.0)
     tnative.get_fastccl().quad_candidates_gated_batch(
         np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, P.min_area,
         P.max_area_rate * H * W, P.border_margin, 4.0 * max(P.win_sizes), quads, areas, valid,
@@ -399,11 +399,12 @@ def test_the_times_buffer_leaves_bytes_and_counters_alone(masks, monkeypatch):
     assert dict(zip(TP.GATE_COUNTS, stats.tolist())) == counts
     assert times[0] > 0 and times[1] > 0 and times[2] == 3
     assert times[0] + times[1] <= 3 * times[3]
+    assert times[4] >= B * Wn
     with pytest.raises(ValueError, match="times"):
         tnative.get_fastccl().quad_candidates_gated_batch(
             np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, P.min_area,
             P.max_area_rate * H * W, P.border_margin, 4.0 * max(P.win_sizes), quads, areas,
-            valid, stats, 3, np.empty(3))
+            valid, stats, 3, np.empty(4))
 
     added = []
     for counters in (None, {}):
@@ -413,5 +414,6 @@ def test_the_times_buffer_leaves_bytes_and_counters_alone(masks, monkeypatch):
         added.append(dict(TP.gate_counts))
         _assert_bytes(out, without, "perception")
     assert added[0] == added[1] == counts
-    assert set(counters) == {"labeler_s", "gates_s", "threads"}
+    assert set(counters) == {"labeler_s", "gates_s", "threads", "runs"}
+    assert counters["runs"] == times[4]
     assert counters["threads"] == TP._host_threads(B * Wn)

@@ -38,23 +38,24 @@ _lock = threading.Lock()
 build_errors: dict[str, str] = {}
 
 
-def _build(name: str) -> str | None:
-    """Compile ``<name>.c`` into a content-hash-named .so; return its path,
+def _build(name: str, here: str = _HERE) -> str | None:
+    """Compile ``<name>.c`` of the directory ``here`` (this one by default)
+    into a content-hash-named .so under its ``_build/``; return its path,
     or None when the compiler fails."""
     import numpy as np
 
-    src = os.path.join(_HERE, f"{name}.c")
+    src = os.path.join(here, f"{name}.c")
     # -march=native: the .so is built on the host that runs it; -pthread:
     # fastccl.c spreads a batch over threads; the flags and every header
     # here (fastccl.c includes quad_gates.h) are part of the name
     flags = ["-O3", "-march=native", "-pthread"]
     digest = hashlib.sha256(" ".join(flags).encode())
-    for path in [src, *sorted(glob.glob(os.path.join(_HERE, "*.h")))]:
+    for path in [src, *sorted(glob.glob(os.path.join(here, "*.h")))]:
         with open(path, "rb") as f:
             digest.update(f.read())
     tag = digest.hexdigest()[:12]
     tag += f"_py{sys.version_info.major}{sys.version_info.minor}"
-    cache_dir = os.path.join(_HERE, "_build")
+    cache_dir = os.path.join(here, "_build")
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, f"{name}_{tag}.so")
     if os.path.exists(so_path):

@@ -46,7 +46,14 @@
  * on given slots, one thread); tests/test_torch_gates.py holds them to
  * the numpy gates.  quad_candidates_gated_batch() also reports, where the
  * caller asks, its threads' time in the labeler and in the gates and the
- * call's own, in ticks of one clock, and how many threads ran.
+ * call's own, in ticks of one clock, how many threads ran and how many
+ * runs they labeled.
+ *
+ * The labeler's steps, not its output, differ from the JAX package's
+ * copy: a packed row is read 64 bits at a time (a word's run edges by
+ * count-trailing-zeros, a word with none passed at one test; a scan a byte
+ * at a time spent half the labeler's time, paid per run), and both
+ * connectivities are united in one sweep over the rows.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -77,20 +84,28 @@ static void unite(int32_t *parent, int32_t a, int32_t b) {
     else if (b < a) parent[a] = b;
 }
 
-/* Union runs between consecutive rows.  ``margin`` 1 = 8-connectivity
- * (runs overlapping [s-1, e+1]), 0 = 4-connectivity ([s, e]). */
-static void link_runs(int32_t *parent, int32_t nruns, const int32_t *rs,
-                      const int32_t *re, const int32_t *row_first,
-                      Py_ssize_t H, int32_t margin) {
-    for (int32_t i = 0; i < nruns; i++) parent[i] = i;
+/* Union runs between consecutive rows, both connectivities in one sweep:
+ * into parent8 the runs overlapping [s-1, e+1] (8-connectivity) and, where
+ * parent4 is not NULL, into it those overlapping [s, e] (4-connectivity),
+ * a subset of the first.  A component's root is its smallest run index
+ * whatever the order of the unions, so the partitions are those of one
+ * sweep a connectivity. */
+static void link_runs(int32_t *parent8, int32_t *parent4, int32_t nruns, const int32_t *rs,
+                      const int32_t *re, const int32_t *row_first, Py_ssize_t H) {
+    for (int32_t i = 0; i < nruns; i++) parent8[i] = i;
+    if (parent4)
+        for (int32_t i = 0; i < nruns; i++) parent4[i] = i;
     for (int32_t y = 1; y < H; y++) {
         int32_t lo = row_first[y], hi = row_first[y + 1];
         int32_t plo = row_first[y - 1], phi = row_first[y];
         int32_t j = plo;
         for (int32_t i = lo; i < hi; i++) {
-            while (j < phi && re[j] < rs[i] - margin) j++;
-            for (int32_t k = j; k < phi && rs[k] <= re[i] + margin; k++)
-                unite(parent, i, k);
+            const int32_t s = rs[i], e = re[i];
+            while (j < phi && re[j] < s - 1) j++;
+            for (int32_t k = j; k < phi && rs[k] <= e + 1; k++) {
+                unite(parent8, i, k);
+                if (parent4 && re[k] >= s && rs[k] <= e) unite(parent4, i, k);
+            }
         }
     }
 }
@@ -235,12 +250,14 @@ static int top_k(int *order, int n, Py_ssize_t K, const Stats *stats) {
  * with Wb == 0, an (H, W) byte mask (nonzero = foreground).  Writes K + K2
  * corner slots (float32 (4, 2) each) and area slots, zeroed first, and the
  * counts of 8-connected candidates (slots [0, K)) and of 4-connected SPLIT
- * candidates (slots [K, K+K2), see the module docstring).  Returns 0, or -1
+ * candidates (slots [K, K+K2), see the module docstring), and where
+ * nruns_out is not NULL the number of runs it labeled.  Returns 0, or -1
  * when out of memory.  It touches no Python object, so its callers run it
  * with the GIL released. */
 static int qc_core(const uint8_t *im, Py_ssize_t H, Py_ssize_t W, Py_ssize_t Wb,
                    Py_ssize_t K, Py_ssize_t K2, double min_area, double max_area,
-                   float *corners, int32_t *areas, int *n8_out, int *n4_out) {
+                   float *corners, int32_t *areas, int *n8_out, int *n4_out,
+                   int32_t *nruns_out) {
     const int packed = Wb > 0;
     const Py_ssize_t stride = packed ? Wb : W;
     int rc = -1;
@@ -250,73 +267,97 @@ static int qc_core(const uint8_t *im, Py_ssize_t H, Py_ssize_t W, Py_ssize_t Wb,
 
     /* ---- extract runs per row ---- */
     int32_t rcap = 4096, nruns = 0;
+    const int32_t row_runs = (int32_t)((W + 1) / 2); /* the most runs a row holds */
     int32_t *rs = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* start x */
     int32_t *re = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* end x (incl) */
     int32_t *ry = (int32_t *)malloc((size_t)rcap * sizeof(int32_t)); /* row */
     int32_t *row_first = (int32_t *)malloc(((size_t)H + 1) * sizeof(int32_t));
-    int32_t *parent8 = NULL, *slot8 = NULL;
+    /* a packed row's edges: x of each bit that differs from the bit left of
+     * it (a run's start, or one past its end) */
+    int32_t *edge = packed ? (int32_t *)malloc(((size_t)W + 2) * sizeof(int32_t)) : NULL;
+    int32_t *parent8 = NULL, *slot8 = NULL, *parent4 = NULL;
     Stats *stats8 = NULL;
     int *order = NULL;
     int nstats8, nkeep8 = 0, nkeep4 = 0;
-    if (!rs || !re || !ry || !row_first) goto done;
+    if (!rs || !re || !ry || !row_first || (packed && !edge)) goto done;
+    /* the packed rows in 64-bit words: the words that cover [0, W), of
+     * which the first `full` lie whole inside the row's Wb bytes; the last
+     * word's bits from W on are masked off, so a run open at W ends there */
+    const int32_t nw = (int32_t)((W + 63) >> 6);
+    const int32_t full = (int32_t)(Wb >> 3) < nw ? (int32_t)(Wb >> 3) : nw;
+    const uint64_t last_mask = (W & 63) ? ((uint64_t)1 << (W & 63)) - 1 : ~(uint64_t)0;
     for (int32_t y = 0; y < H; y++) {
         row_first[y] = nruns;
+        if (nruns + row_runs > rcap) {
+            while (nruns + row_runs > rcap) rcap *= 2;
+            int32_t *rs2 = (int32_t *)realloc(rs, (size_t)rcap * sizeof(int32_t));
+            if (rs2) rs = rs2;
+            int32_t *re2 = (int32_t *)realloc(re, (size_t)rcap * sizeof(int32_t));
+            if (re2) re = re2;
+            int32_t *ry2 = (int32_t *)realloc(ry, (size_t)rcap * sizeof(int32_t));
+            if (ry2) ry = ry2;
+            if (!rs2 || !re2 || !ry2) goto done;
+        }
         const uint8_t *row = im + (size_t)y * stride;
-        int32_t x = 0;
-        while (x < W) {
-            int32_t s, e;
-            if (packed) {
-                int32_t xb = x >> 3;
-                uint8_t bits = (uint8_t)(row[xb] >> (x & 7));
-                while (!bits) {
-                    xb++;
-                    if (xb >= Wb) break;
-                    bits = row[xb];
-                    x = xb << 3;
+        if (packed) {
+            /* a word at a time: its edges are the set bits of w ^ (w << 1
+             * | the previous word's top bit), so a word of zeros outside a
+             * run, or of ones inside one, costs one test */
+            int32_t n = 0;
+            uint64_t carry = 0;
+            for (int32_t k = 0; k < nw; k++) {
+                uint64_t w = 0;
+                if (k < full) {
+                    memcpy(&w, row + ((size_t)k << 3), 8);
+                } else {
+                    for (int32_t b = 0; (k << 3) + b < Wb && b < 8; b++)
+                        w |= (uint64_t)row[(k << 3) + b] << (b << 3);
                 }
-                if (xb >= Wb || x >= W) break;
-                x += (int32_t)__builtin_ctz(bits);
-                if (x >= W) break;
-                s = x;
-                /* find run end: first zero bit at/after x (bits beyond the
-                 * byte shift in as zeros of invb, so invb == 0 means the
-                 * rest of the byte is all ones) */
-                while (x < W) {
-                    int32_t xb2 = x >> 3;
-                    uint32_t invb = (uint32_t)((uint8_t)~row[xb2]) >> (x & 7);
-                    if (invb) { x += (int32_t)__builtin_ctz(invb); break; }
-                    x = (xb2 + 1) << 3;
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_BIG_ENDIAN__
+                if (k < full) w = __builtin_bswap64(w);
+#endif
+                if (k == nw - 1) w &= last_mask;
+                uint64_t t = w ^ (w << 1 | carry);
+                carry = w >> 63;
+                const int32_t base = k << 6;
+                while (t) {
+                    edge[n++] = base + __builtin_ctzll(t);
+                    t &= t - 1;
                 }
-                if (x > W) x = (int32_t)W;
-                e = x - 1;
-            } else {
+            }
+            if (n & 1) edge[n++] = (int32_t)W; /* a run open at the row's end */
+            for (int32_t q = 0; q < n; q += 2) {
+                rs[nruns] = edge[q]; re[nruns] = edge[q + 1] - 1; ry[nruns] = y;
+                nruns++;
+            }
+        } else {
+            int32_t x = 0;
+            while (x < W) {
+                int32_t s, e;
                 while (x < W && !row[x]) x++;
                 if (x >= W) break;
                 s = x;
                 while (x < W && row[x]) x++;
                 e = x - 1;
+                rs[nruns] = s; re[nruns] = e; ry[nruns] = y;
+                nruns++;
             }
-            if (nruns == rcap) {
-                rcap *= 2;
-                int32_t *rs2 = (int32_t *)realloc(rs, (size_t)rcap * sizeof(int32_t));
-                if (rs2) rs = rs2;
-                int32_t *re2 = (int32_t *)realloc(re, (size_t)rcap * sizeof(int32_t));
-                if (re2) re = re2;
-                int32_t *ry2 = (int32_t *)realloc(ry, (size_t)rcap * sizeof(int32_t));
-                if (ry2) ry = ry2;
-                if (!rs2 || !re2 || !ry2) goto done;
-            }
-            rs[nruns] = s; re[nruns] = e; ry[nruns] = y;
-            nruns++;
         }
     }
     row_first[H] = nruns;
+    if (nruns_out) *nruns_out = nruns;
 
-    /* ---- 8-connected components ---- */
+    /* ---- components of both connectivities, one sweep ---- */
     parent8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
     slot8 = (int32_t *)malloc((size_t)(nruns > 0 ? nruns : 1) * sizeof(int32_t));
     if (!parent8 || !slot8) goto done;
-    link_runs(parent8, nruns, rs, re, row_first, H, 1);
+    if (K2 > 0 && nruns > 0) {
+        parent4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
+        if (!parent4) goto done;
+    }
+    link_runs(parent8, parent4, nruns, rs, re, row_first, H);
+
+    /* ---- 8-connected components ---- */
     nstats8 = run_stats(parent8, slot8, nruns, rs, re, ry, &stats8);
     if (nstats8 < 0) goto done;
 
@@ -331,17 +372,13 @@ static int qc_core(const uint8_t *im, Py_ssize_t H, Py_ssize_t W, Py_ssize_t Wb,
         goto done;
 
     /* ---- 4-connected SPLIT candidates ---- */
-    if (K2 > 0 && nruns > 0) {
-        int32_t *parent4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
+    if (parent4) {
         int32_t *slot4 = (int32_t *)malloc((size_t)nruns * sizeof(int32_t));
         Stats *stats4 = NULL;
         int32_t *root_run4 = NULL;
         int *order4 = NULL;
         int nstats4 = -1;
-        if (parent4 && slot4) {
-            link_runs(parent4, nruns, rs, re, row_first, H, 0);
-            nstats4 = run_stats(parent4, slot4, nruns, rs, re, ry, &stats4);
-        }
+        if (slot4) nstats4 = run_stats(parent4, slot4, nruns, rs, re, ry, &stats4);
         if (nstats4 >= 0) {
             root_run4 = (int32_t *)malloc((size_t)(nstats4 > 0 ? nstats4 : 1) * sizeof(int32_t));
             order4 = (int *)malloc((size_t)(nstats4 > 0 ? nstats4 : 1) * sizeof(int));
@@ -362,15 +399,15 @@ static int qc_core(const uint8_t *im, Py_ssize_t H, Py_ssize_t W, Py_ssize_t Wb,
             ok4 = !corner_pass(slot4, nruns, nstats4, rs, re, ry, stats4, order4, nkeep4,
                                corners + (size_t)K * 8, areas + K);
         }
-        free(order4); free(root_run4); free(stats4); free(slot4); free(parent4);
+        free(order4); free(root_run4); free(stats4); free(slot4);
         if (!ok4) goto done;
     }
     *n8_out = nkeep8;
     *n4_out = nkeep4;
     rc = 0;
 done:
-    free(order); free(stats8); free(slot8); free(parent8);
-    free(rs); free(re); free(ry); free(row_first);
+    free(order); free(stats8); free(slot8); free(parent8); free(parent4);
+    free(rs); free(re); free(ry); free(row_first); free(edge);
     return rc;
 }
 
@@ -402,7 +439,7 @@ static PyObject *qc_impl(Py_buffer *fg, Py_ssize_t H, Py_ssize_t W,
     if (corners && areas) {
         Py_BEGIN_ALLOW_THREADS
         rc = qc_core((const uint8_t *)fg->buf, H, W, Wb, K, K2, min_area, max_area,
-                     corners, areas, &nkeep8, &nkeep4);
+                     corners, areas, &nkeep8, &nkeep4, NULL);
         Py_END_ALLOW_THREADS
     }
     PyBuffer_Release(fg);
@@ -501,7 +538,7 @@ static PyObject *quad_candidates_batch(PyObject *self, PyObject *args) {
             int n8, n4;
             rc = qc_core(im + (size_t)m * H * Wb, H, W, Wb, K, K2, min_area, max_area,
                          corners + (size_t)m * (K + K2) * 8,
-                         areas + (size_t)m * (K + K2), &n8, &n4);
+                         areas + (size_t)m * (K + K2), &n8, &n4, NULL);
             counts[2 * m] = n8;
             counts[2 * m + 1] = n4;
         }
@@ -557,6 +594,7 @@ typedef struct {
     GatedBatch *job;
     int64_t stats[GS_N]; /* this thread's re-fit counters */
     uint64_t labeler, gates; /* its ticks in qc_core and gate_window */
+    int64_t runs;            /* the runs qc_core labeled */
     int rc;
 } GatedWorker;
 
@@ -585,17 +623,20 @@ static void *gated_worker(void *arg) {
     int32_t *areas_i = (int32_t *)malloc((size_t)Ks * sizeof(int32_t) + 1);
     w->rc = areas_i ? 0 : -1;
     uint64_t labeler = 0, gates = 0;
+    int64_t runs = 0;
     while (!w->rc && !__atomic_load_n(&job->failed, __ATOMIC_RELAXED)) {
         const Py_ssize_t m = __atomic_fetch_add(&job->next, 1, __ATOMIC_RELAXED);
         if (m >= job->masks) break;
         const uint8_t *mask = job->im + (size_t)m * job->H * job->Wb;
         float *quads = job->quads + (size_t)m * Ks * 8;
         int n8, n4;
+        int32_t nruns = 0;
         const uint64_t t0 = ticks();
         w->rc = qc_core(mask, job->H, job->W, job->Wb, job->K, job->K2, job->gp->min_area,
-                        job->max_area, quads, areas_i, &n8, &n4);
+                        job->max_area, quads, areas_i, &n8, &n4, &nruns);
         const uint64_t t1 = ticks();
         labeler += t1 - t0;
+        runs += nruns;
         if (!w->rc) {
             w->rc = gate_window(mask, job->Wb, job->gp, job->K, Ks, n8, n4, quads, areas_i,
                                 job->areas + (size_t)m * Ks, job->valid + (size_t)m * Ks,
@@ -605,6 +646,7 @@ static void *gated_worker(void *arg) {
     }
     w->labeler = labeler;
     w->gates = gates;
+    w->runs = runs;
     if (w->rc) __atomic_store_n(&job->failed, 1, __ATOMIC_RELAXED);
     free(areas_i);
     return NULL;
@@ -618,11 +660,12 @@ static void *gated_worker(void *arg) {
  *   qc_core); the outputs are writable contiguous buffers that the call
  *   fills: quads float32 (B, Wn*(K+K2), 4, 2), areas float32
  *   (B, Wn*(K+K2)), valid bool (B, Wn*(K+K2)), stats int64 (GS_N,), the
- *   re-fit counters of quad_gates.h, and where given times float64 (4,):
+ *   re-fit counters of quad_gates.h, and where given times float64 (5,):
  *   the ticks the threads spent in the labeler and in the gates, summed
- *   over them, the number of threads that ran, and the ticks from before
- *   the first thread starts to after the last one joins (the caller's
- *   clock around the call, over these, scales the first two).
+ *   over them, the number of threads that ran, the ticks from before the
+ *   first thread starts to after the last one joins (the caller's clock
+ *   around the call, over these, scales the first two), and the runs the
+ *   labeler found in the batch's masks.
  * Each (frame, window) is labeled as quad_candidates_batch labels it, then
  * wound, gated and re-fit as vican_torch/perception.py's _gated_candidates
  * does it (quad_gates.h), byte for byte: the whole of perception's host
@@ -647,7 +690,7 @@ static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
                                        &s_out);
     if (!err && threads < 1)
         err = "threads must be at least 1";
-    if (!err && t_out.obj && t_out.len < 4 * (Py_ssize_t)sizeof(double))
+    if (!err && t_out.obj && t_out.len < 5 * (Py_ssize_t)sizeof(double))
         err = "times buffer too small";
     int rc = 0;
     if (!err) {
@@ -672,13 +715,14 @@ static PyObject *quad_candidates_gated_batch(PyObject *self, PyObject *args) {
             for (Py_ssize_t t = 1; t < nt; t++)
                 if (started[t]) pthread_join(tids[t], NULL);
             memset(stats, 0, GS_N * sizeof(int64_t));
-            double times[4] = {0.0, 0.0, 0.0, (double)(ticks() - t0)};
+            double times[5] = {0.0, 0.0, 0.0, (double)(ticks() - t0), 0.0};
             for (Py_ssize_t t = 0; t < nt; t++) {
                 rc |= workers[t].rc;
                 for (int k = 0; k < GS_N; k++) stats[k] += workers[t].stats[k];
                 times[0] += (double)workers[t].labeler;
                 times[1] += (double)workers[t].gates;
                 times[2] += (t == 0 || started[t]) ? 1.0 : 0.0;
+                times[4] += (double)workers[t].runs;
             }
             if (t_out.obj) memcpy(t_out.buf, times, sizeof(times));
         }

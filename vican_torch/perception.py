@@ -561,7 +561,7 @@ def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params, counters=None
     areas = np.empty((B, Wn * (K + K2)), np.float32)
     valid = np.empty((B, Wn * (K + K2)), bool)
     stats = np.empty(len(GATE_COUNTS), np.int64)
-    times = np.empty(4, np.float64)
+    times = np.empty(5, np.float64)
     t0 = time.perf_counter()
     ccl.quad_candidates_gated_batch(
         np.ascontiguousarray(packed[:, :, :H]), B, Wn, H, W, Wb, K, K2, params.min_area,
@@ -575,7 +575,8 @@ def _c_candidates(ccl, packed: np.ndarray, H: int, W: int, params, counters=None
         # clock over its ticks on the workers' clock
         per_tick = seconds / max(times[3], 1.0)
         counters.update(labeler_s=float(times[0]) * per_tick,
-                        gates_s=float(times[1]) * per_tick, threads=int(times[2]))
+                        gates_s=float(times[1]) * per_tick, threads=int(times[2]),
+                        runs=int(times[4]))
     return quads, valid, areas
 
 
@@ -679,7 +680,9 @@ def quads_from_packed_masks(packed: np.ndarray, H: int, W: int, params, counters
     ``gates_s``, the seconds spent labeling (with the scipy labeler, the
     masks' unpacking too) and gating, summed over the threads, and
     ``threads``, how many ran: the C module's own clock on each of its
-    threads, else the host clock around the two steps on one thread.
+    threads, else the host clock around the two steps on one thread.  The
+    C module adds ``runs``, the runs of foreground pixels it labeled over
+    the batch's masks (each row's, every window's).
     """
     global last_labeler, last_gates
     ccl = _get_ccl()
@@ -878,8 +881,9 @@ class _Program:
         card it runs on the caller's current stream, the feed's own
         (:func:`_edges`).  The "host candidates" event counts the
         labeler's and the gates' thread-seconds (``labeler_s``,
-        ``gates_s``), the ``threads`` that ran and the valid
-        ``candidates`` slots, which the drain's detect program takes in;
+        ``gates_s``), the ``threads`` that ran, the ``runs`` the C labeler
+        labeled and the valid ``candidates`` slots, which the drain's
+        detect program takes in;
         its child "candidates upload" times their move to the card (on the
         CPU, nothing).  "detect program" and "PnP" record
         ``device_seconds``; the feed's phases record no timing events.
