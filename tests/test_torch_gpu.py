@@ -830,6 +830,136 @@ def test_a_capture_times_its_kernels_and_adds_one_wait_a_batch(cuda, monkeypatch
             assert 0 < e["device_seconds"] <= e["seconds"], e
 
 
+def _rig_frames(dev):
+    """The cube seen by two cameras at 640x480 and one at 1920x1080 over 5
+    timesteps, rendered on ``dev``, as the frames arrive (timesteps
+    outer): ``(frames, names, frame_cams)``, the frames a list of 2-D
+    tensors.  In batches of 4: 4, 4, 2 VGA frames, then 4 and 1 HD, each
+    size's last batch padded."""
+    cams = {}
+    for i, (pos, (W, H)) in enumerate([((2.4, 0, 1.2), (640, 480)),
+                                       ((0, 2.4, 1.4), (1920, 1080)),
+                                       ((-2.4, 0.5, 1.0), (640, 480))]):
+        f = 0.55 * (W + H)
+        K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1.0]])
+        cams[str(i)] = Camera(id=str(i), intrinsics=K, distortion=np.zeros(12),
+                              extrinsics=render.look_at(pos, (0, 0, 1.0)),
+                              resolution_x=W, resolution_y=H)
+    markers = render.make_cube_markers()
+    tiles = render.marker_tiles(list(markers))
+    frames, names, frame_cams = [], [], []
+    for t, obj in render.cube_trajectory(5, seed=11).items():
+        world = {m: obj @ p for m, p in markers.items()}
+        for cid, cam in cams.items():
+            frames.append(render.render_image(cam, world, tiles, CUBE_KW["marker_size"],
+                                              device=dev))
+            names.append(f"{t}/{cid}.jpg")
+            frame_cams.append(cam)
+    return frames, names, frame_cams
+
+
+@pytest.fixture(scope="module")
+def rig():
+    """:func:`_rig_frames` on the card, rendered once for the tests that
+    share them, and its frames in host memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    frames, names, frame_cams = _rig_frames(torch.device("cuda"))
+    return frames, [f.cpu().numpy() for f in frames], names, frame_cams
+
+
+def _assert_identical(a: dict, b: dict):
+    """The same keys in the same order, and bit for bit the same values."""
+    assert list(a) == list(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k]["corners"], b[k]["corners"])
+        np.testing.assert_array_equal(a[k]["pose"].pose(), b[k]["pose"].pose())
+        assert a[k]["reprojected_err"] == b[k]["reprojected_err"]
+        assert a[k]["im_filename"] == b[k]["im_filename"]
+
+
+def _uploads(timer) -> list:
+    return [(e["batch"], e["height"], e["width"], e["pinned"], e["bytes"])
+            for e in sorted(timer.events, key=lambda e: e["batch"]) if e["name"] == "upload"]
+
+
+@pytest.mark.gpu
+def test_every_route_of_a_rig_to_the_card_gives_the_same_edges(rig):
+    """640x480 and 1920x1080 frames in batches of 4, each size ending in a
+    padded tail batch: the list of host frames (stacked into page-locked
+    memory), one host array of each size (copied into it by the upload)
+    and the same list already on the card (stacked there) give bit for bit
+    the same edges; every batch is 4 frames on the card."""
+    on_card, host, names, cams = rig
+    kw = dict(CUBE_KW, batch_size=4)
+    listed = estimate_pose_gray(host, names, cams, **kw)
+    arrays = {}
+    for size in ((480, 640), (1080, 1920)):
+        idx = [i for i, f in enumerate(host) if f.shape == size]
+        arrays.update(estimate_pose_gray(np.stack([host[i] for i in idx]),
+                                         [names[i] for i in idx], [cams[i] for i in idx],
+                                         **kw))
+    timer = PhaseTimer(verbose=False, device=torch.device("cuda"))
+    carded = estimate_pose_gray(on_card, names, cams, timer=timer, **kw)
+    assert {k[0] for k in listed} == {"0", "1", "2"} and len(listed) > 20
+    _assert_identical(listed, arrays)
+    _assert_identical(listed, carded)
+    assert [u[:3] for u in _uploads(timer)] == [(0, 480, 640), (1, 480, 640), (2, 480, 640),
+                                                (3, 1080, 1920), (4, 1080, 1920)]
+
+
+@pytest.mark.gpu
+def test_every_depth_stages_a_rig_to_the_same_edges(rig, monkeypatch):
+    """The list of host frames at pipeline depths 1, 2 and 3: the same
+    edges, bit for bit.  A page-locked batch rewritten while its copy to
+    the card still ran would show here as other frames, so other edges."""
+    _, host, names, cams = rig
+    kw = dict(CUBE_KW, batch_size=4)
+    runs = {}
+    for depth in ("1", "2", "3"):
+        monkeypatch.setenv("VICAN_TPU_PIPELINE_DEPTH", depth)
+        runs[depth] = estimate_pose_gray(host, names, cams, **kw)
+    assert len(runs["1"]) > 20
+    _assert_identical(runs["1"], runs["2"])
+    _assert_identical(runs["1"], runs["3"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["host frames", "host array", "card frames", "card array"])
+def test_the_upload_counts_whether_it_went_through_pinned_memory(rig, source):
+    """Every "upload" counts ``pinned`` 1 where its frames came from host
+    memory (a list's stack or an array's slice, the padded tail batch's
+    too) and 0 where they were on the card already, and ``bytes``, its
+    batch of 4 frames."""
+    on_card, host, names, cams = rig
+    frames = host if source.startswith("host") else on_card
+    sizes = [(480, 640)] * 3 + [(1080, 1920)] * 2
+    if source.endswith("array"):  # the VGA frames
+        idx = [i for i, f in enumerate(host) if f.shape == (480, 640)]
+        stack = np.stack if source.startswith("host") else torch.stack
+        frames, names, cams = (stack([frames[i] for i in idx]), [names[i] for i in idx],
+                               [cams[i] for i in idx])
+        sizes = sizes[:3]
+    timer = PhaseTimer(verbose=False, device=torch.device("cuda"))
+    estimate_pose_gray(frames, names, cams, timer=timer, **dict(CUBE_KW, batch_size=4))
+    pinned = int(source.startswith("host"))
+    assert _uploads(timer) == [(b, h, w, pinned, 4 * h * w) for b, (h, w) in enumerate(sizes)]
+
+
+@pytest.mark.gpu
+def test_a_second_capture_allocates_no_pinned_memory(rig):
+    """Host frames of two sizes: the first capture allocates the page-locked
+    memory its batches pass through, and a second capture of the same
+    frames reuses it (PyTorch's caching host allocator: no new host
+    allocation)."""
+    _, host, names, cams = rig
+    kw = dict(CUBE_KW, batch_size=4)
+    estimate_pose_gray(host, names, cams, **kw)
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    estimate_pose_gray(host, names, cams, **kw)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+
+
 @pytest.mark.gpu
 def test_a_dense_solve_times_its_stages_and_adds_three_waits(cuda, monkeypatch):
     """A dense-route solve on the card: the three stages nest in

@@ -443,8 +443,9 @@ def test_host_preprocess_is_bit_equal_to_jax(kind, brightness, contrast):
     """The port's host_preprocess (a 256-entry table on uint8 frames, the
     float32 expression on other dtypes) gives the JAX package's bytes at
     every (brightness, contrast) of the grid, clipping every value to 0
-    (-300, 0) and to 255 (300, 0) among them; ``table_frames`` counts the
-    frames that went through the table: every uint8 frame, no other."""
+    (-300, 0) and to 255 (300, 0) among them, into a new batch and into a
+    given one; ``table_frames`` counts the frames that went through the
+    table: every uint8 frame, no other."""
     from vican_tpu.perception import host_preprocess
 
     images = _preprocess_input(kind)
@@ -453,6 +454,10 @@ def test_host_preprocess_is_bit_equal_to_jax(kind, brightness, contrast):
     out = TP.host_preprocess(images, float(brightness), float(contrast), counts)
     assert out.dtype == ref.dtype == np.uint8
     np.testing.assert_array_equal(out, ref)
+    # written into a given batch (a staged upload's), every byte of it
+    given = np.full(ref.shape, 7, np.uint8)
+    assert TP.host_preprocess(images, float(brightness), float(contrast), out=given) is given
+    np.testing.assert_array_equal(given, ref)
     assert counts["table_frames"] == (len(images) if images.dtype == np.uint8 else 0)
     if (brightness, contrast) in ((-300, 0), (300, 0)):
         assert np.all(out == (0 if brightness < 0 else 255))
@@ -553,6 +558,47 @@ def test_an_array_keeps_its_slices_and_records_no_stack(rig):
     assert "stack" not in names and names.count("upload") == 3
     assert all((e["height"], e["width"]) == (180, 320)
                for e in timer.events if e["name"] == "upload")
+
+
+@pytest.mark.parametrize("entry", ["frames", "array", "files, gray", "files, colour"])
+def test_the_cpu_path_pins_nothing(rig, monkeypatch, entry):
+    """On the CPU no batch goes through page-locked memory: nothing asks
+    for it, and every "upload" counts ``pinned`` 0 and its batch's
+    ``bytes``, the padded tail batches' (batch 5: 5, 5, 2 small frames,
+    then 4 large) too; the sequence of frames, an array of one size and the
+    file entry, which decodes straight to gray or preprocesses colour."""
+    frames, files, cams, _, _ = rig
+    asked = []
+    empty, pin = torch.empty, torch.Tensor.pin_memory
+
+    def spy_empty(*args, **kwargs):
+        asked.append(bool(kwargs.get("pin_memory")))
+        return empty(*args, **kwargs)
+
+    def spy_pin(self, *args, **kwargs):
+        asked.append(True)
+        return pin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy_pin)
+    timer = PhaseTimer(verbose=False, device="cpu")
+    kw = dict(RIG_KW, device="cpu", timer=timer, batch_size=5)
+    sizes = [(180, 320)] * 3 + [(360, 640)]
+    if entry == "frames":
+        TP.estimate_pose_gray(frames, files, cams, **kw)
+    elif entry == "array":
+        idx = [i for i, f in enumerate(frames) if f.shape == (180, 320)]
+        TP.estimate_pose_gray(np.stack([frames[i] for i in idx]), [files[i] for i in idx],
+                              [cams[i] for i in idx], **kw)
+        sizes = sizes[:3]
+    else:
+        level = 0 if entry == "files, gray" else 10
+        TP.estimate_pose_batched(files, cams, brightness=-level, contrast=level, **kw)
+    uploads = sorted((e for e in timer.events if e["name"] == "upload"), key=lambda e: e["batch"])
+    assert [(e["height"], e["width"]) for e in uploads] == sizes
+    assert [e["bytes"] for e in uploads] == [5 * h * w for h, w in sizes]
+    assert [e["pinned"] for e in uploads] == [0] * len(sizes)
+    assert asked and not any(asked)
 
 
 @pytest.mark.parametrize("bad", ["three dimensions", "float32", "int16 tensor", "one name short"])

@@ -97,6 +97,55 @@ def _feed_threads():
     return [t for t in threading.enumerate() if t.name.startswith("vican-feed")]
 
 
+@pytest.mark.parametrize("source", ["array", "frames", "gray files"])
+@pytest.mark.parametrize("nb,B,world,rank", [(5, 5, 1, 0), (3, 5, 1, 0), (5, 6, 2, 0),
+                                             (5, 6, 2, 1), (3, 6, 3, 1), (2, 6, 3, 2)],
+                         ids=["whole batch", "tail pad", "rank share", "rank share, padded",
+                              "rank share, one real frame", "rank share, all pad"])
+def test_a_batch_assembled_into_a_given_buffer_has_the_old_bytes(tmp_path, source, nb, B,
+                                                                 world, rank):
+    """A batch of ``nb`` frames (from an array, as a slice of it; from a
+    sequence of frames; or gray files, decoded on a pool and handed on as
+    the rank's share of the decoded batch) written into a given buffer
+    (``perception._share`` of the batch, then ``_assemble``) has the bytes
+    of the code before it: the slice, ``torch.stack`` or decode of the
+    frames, padded to ``B`` with copies of the last by ``np.concatenate``,
+    then the rank's ``B / world`` rows; and every byte of the buffer is
+    written."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(nb + 10 * B + 100 * rank)
+    capture = rng.integers(0, 256, (9, 6, 7), dtype=np.uint8)
+    idx = list(range(2, 2 + nb))
+    if source == "array":
+        old = capture[idx[0]:idx[-1] + 1]
+    elif source == "frames":
+        frames = [torch.as_tensor(f) for f in capture]
+        old = torch.stack([frames[i] for i in idx]).numpy()
+    else:
+        files = [str(tmp_path / f"{i}.png") for i in idx]
+        for i, f in zip(idx, files):
+            cv2.imwrite(f, capture[i])
+        with ThreadPoolExecutor(2) as pool:
+            decoded = TP._decode_batch(pool, files, True)
+        old = capture[idx[0]:idx[-1] + 1]
+    old = np.concatenate([old, np.repeat(old[-1:], B - nb, axis=0)])
+    Bs = B // world
+    old = old[rank * Bs:(rank + 1) * Bs]
+    share = TP._share(nb, rank * Bs, Bs)
+    ids = idx[share]
+    given = torch.full((Bs, 6, 7), 7, dtype=torch.uint8)
+    if source == "array":
+        out = TP._assemble(capture[ids[0]:ids[-1] + 1], given)
+    elif source == "frames":
+        out = TP._assemble([frames[i] for i in ids], given)
+    else:
+        out = TP._assemble(decoded[share], given)
+    assert out is given
+    np.testing.assert_array_equal(given.numpy(), old)
+
+
 def test_wrong_resolution_raises_from_the_worker(rendered):
     """Cameras that declare 320x180 for 640x360 files: the feed thread's
     check raises the JAX package's ValueError, message and all, from the

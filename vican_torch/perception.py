@@ -65,7 +65,7 @@ transition midpoint), as in the JAX package.
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 import os
 import threading
 import time
@@ -226,7 +226,7 @@ def _contrast_brightness(x: np.ndarray, brightness: float, contrast: float) -> n
 
 
 def host_preprocess(images: np.ndarray, brightness: float, contrast: float,
-                    counters=None) -> np.ndarray:
+                    counters=None, out: np.ndarray | None = None) -> np.ndarray:
     """Reference contrast/brightness + BGR grayscale, on host (uint8 out).
 
     Bit-matches cam.py:137-145 (:func:`_contrast_brightness`), then OpenCV
@@ -240,7 +240,10 @@ def host_preprocess(images: np.ndarray, brightness: float, contrast: float,
     the float32 expression itself.
 
     ``counters``, where given, a dict that receives ``table_frames``, the
-    number of frames that went through the table.
+    number of frames that went through the table.  ``out``, where given, a
+    uint8 ``(N, H, W)`` array that receives the gray frames and is
+    returned; else the gray input itself is returned where the transform
+    is the identity, and a new array otherwise.
     """
     table = None
     if contrast == 0 and brightness == 0:
@@ -256,7 +259,7 @@ def host_preprocess(images: np.ndarray, brightness: float, contrast: float,
     if x.ndim == 4 and x.shape[-1] == 3:
         import cv2 as cv
 
-        out = np.empty(x.shape[:3], x.dtype)
+        out = np.empty(x.shape[:3], x.dtype) if out is None else out
         mapped = np.empty(x.shape[1:], x.dtype) if table is not None else None
         for im, o in zip(x, out):
             im = np.ascontiguousarray(im)
@@ -264,7 +267,13 @@ def host_preprocess(images: np.ndarray, brightness: float, contrast: float,
                 im = cv.LUT(im, table, dst=mapped)
             cv.cvtColor(im, cv.COLOR_BGR2GRAY, dst=o)
         return out
-    return x if table is None else table[x]
+    if out is None:
+        return x if table is None else table[x]
+    if table is None:
+        np.copyto(out, x)
+    else:
+        np.take(table, x, out=out)
+    return out
 
 
 def _quad_gates(quads: np.ndarray, areas: np.ndarray, H: int, W: int, params) -> np.ndarray:
@@ -799,6 +808,67 @@ def _unpack_pnp_result(out: np.ndarray):
             out[:, 10:19].reshape(N, 3, 3), out[:, 19:22], out[:, 22])
 
 
+def _batch_memory(shape, dev: torch.device, like=None) -> torch.Tensor:
+    """Empty uint8 memory for a batch of ``shape`` bound for ``dev``: on
+    the card that holds ``like`` (a frame or batch) where it is on one, so
+    frames on a card never pass through the host; else host memory,
+    page-locked where ``dev`` is a CUDA card.  The page-locked memory comes
+    from PyTorch's caching host allocator.  A block is resident, so the
+    frames written into it meet no page fault, and it reaches the card by
+    DMA without a bounce through CUDA's own staging buffer
+    (:func:`_upload`).  The allocator hands a block out again only once the
+    copies queued from it have run, so a batch is never rewritten before
+    its upload ends; and it keeps its blocks, so a few serve batch after
+    batch and call after call.  The process holds them until it exits:
+    each block is the batch's bytes rounded up to a power of two (32
+    frames: 16 MiB at 640x480, 32 MiB at 1280x720, 64 MiB at 1920x1080),
+    a few blocks a batch size (PERF.md, section 3, gives the count).  On
+    the CPU the memory is plain."""
+    if isinstance(like, torch.Tensor) and like.is_cuda:
+        return torch.empty(shape, dtype=torch.uint8, device=like.device)
+    return torch.empty(shape, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+
+
+def _pad(batch: torch.Tensor, m: int) -> torch.Tensor:
+    """``batch`` with copies of its row ``m - 1`` written into its rows
+    from ``m`` on (a tail batch's pad)."""
+    if m < len(batch):
+        batch[m:] = batch[m - 1]
+    return batch
+
+
+def _assemble(frames, out: torch.Tensor) -> torch.Tensor:
+    """Write ``frames`` (an ``(m, H, W)`` array or tensor, or a sequence of
+    m 2-D frames, ``m <= len(out)``) into ``out``'s first m rows and copies
+    of the last of them into the rest, and return ``out``."""
+    m = len(frames)
+    if isinstance(frames, (list, tuple)):
+        torch.stack([torch.as_tensor(f) for f in frames], out=out[:m])
+    else:
+        out[:m].copy_(torch.as_tensor(frames))
+    return _pad(out, m)
+
+
+def _upload(gray, n: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The batch of ``n`` frames made from ``gray`` (a loader's: ``n``
+    frames, or fewer, padded to ``n`` with copies of the last) on ``dev``,
+    and the host batch it was copied from (None where ``gray`` was on a
+    card).  Host frames bound for a card are first assembled in
+    :func:`_batch_memory`'s page-locked memory, unless they are a whole
+    batch there already, then copied without blocking on the calling
+    thread's current stream.  Frames on a card, and host frames bound for
+    the CPU, are taken as they are, and assembled only to be padded."""
+    on_card = isinstance(gray, torch.Tensor) and gray.is_cuda
+    staged = (on_card or dev.type != "cuda"
+              or (isinstance(gray, torch.Tensor) and gray.is_pinned()))
+    if len(gray) < n or not staged:
+        gray = _assemble(gray, _batch_memory((n, *gray.shape[1:]), dev, gray))
+    gray = torch.as_tensor(gray)
+    if on_card:
+        return gray.to(dev).contiguous(), None
+    return gray.to(dev, non_blocking=True).contiguous(), gray
+
+
 @dataclass
 class _Fed:
     """One batch as the feed stage hands it to the drain: the meta data of
@@ -873,8 +943,11 @@ class _Program:
         self.params = D_.resolve_error_correction(params, aruco)
 
     def feed(self, files, cams, nb, gray, timer: PhaseTimer) -> _Fed:
-        """The feed stage of one batch (uint8 gray ``(B, H, W)`` as given):
-        upload, threshold, and the host candidates
+        """The feed stage of one batch (uint8 gray ``(B, H, W)`` as given,
+        or fewer frames, padded to one a camera with copies of the last):
+        upload (:func:`_upload`: the "upload" event counts the frames'
+        ``height``, ``width`` and ``bytes``, and ``pinned``, 1 where they
+        went through page-locked memory), threshold, and the host candidates
         (:func:`quads_from_packed_masks`: labeler, winding, gates and
         re-fit, then on the card their upload; the host modes) or the
         device candidates (``pure``).  On the
@@ -899,8 +972,9 @@ class _Program:
         H, W = gray.shape[1:]
         Ks, dists = _camera_arrays(cams)
         with timer.phase("upload", stage="feed") as counts:
-            counts["height"], counts["width"] = H, W
-            g = torch.as_tensor(gray).to(dev).contiguous()
+            g, host = _upload(gray, len(cams), dev)
+            counts.update(height=H, width=W, bytes=g.numel(),
+                          pinned=int(host is not None and g.is_cuda))
             Ks_d = torch.as_tensor(Ks, dtype=torch.float64).to(dev)
             dists_d = torch.as_tensor(dists, dtype=torch.float64).to(dev)
         if self.mode == "pure":
@@ -917,8 +991,8 @@ class _Program:
                     packed = _Fetched(packed).numpy()
             else:
                 with timer.phase("host threshold", stage="feed"):
-                    host = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
-                    packed = host_threshold(host, p)
+                    host = g.cpu() if host is None else host
+                    packed = host_threshold(host.numpy(), p)
             with timer.phase("host candidates", stage="feed") as counts:
                 candidates = quads_from_packed_masks(packed, H, W, p, counts)
                 counts["candidates"] = int(np.count_nonzero(candidates[1]))
@@ -1016,19 +1090,34 @@ def _pipeline_depth() -> int:
     return max(1, int(os.environ.get("VICAN_TPU_PIPELINE_DEPTH") or 2) or 2)
 
 
-def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
+def _share(nb: int, lo: int, n: int) -> slice:
+    """The frames of a batch of ``nb`` that make the ``n`` rows from row
+    ``lo`` of it padded with copies of its last frame: the real frames
+    there and the last one where the rows run past them (the whole share
+    being its copies where ``lo >= nb``)."""
+    return slice(min(lo, nb - 1), min(lo + n, nb))
+
+
+def _edges(load, batches: list, B, program: _Program, timer: PhaseTimer, verbose: bool,
            part=(0, 1)) -> tuple[dict, list]:
     """Run batches through ``program`` on the two-thread feed/drain
-    pipeline of vican_tpu/perception.py:1725-1758.  ``loads[i]()`` returns
-    batch i's ``(files, cams, gray (nb, H, W) uint8)``.  A tail batch is
-    padded to ``B`` frames with copies of its last frame and camera
+    pipeline of vican_tpu/perception.py:1725-1758.  ``batches`` holds
+    each batch's frame indices, ``len <= B``.  A tail batch is padded to
+    ``B`` frames with copies of its last frame and camera
     (vican_tpu/perception.py:1343-1345) and only its ``nb`` real frames
     enter the dict.  ``part = (rank, world)``: this process runs only the
-    rank's ``B / world`` frames of every batch.  Returns the dict and its
-    keys batch by batch.
+    rank's ``B / world`` rows of every padded batch.  ``load(idx, share)``
+    returns batch ``idx``'s ``(files, cams, gray)``: its files and
+    cameras, and in ``gray`` (uint8, ``(n, H, W)``) its frames
+    ``idx[share]`` (:func:`_share`), the rank's own, either as they are
+    or as the rank's whole padded batch, ready for the upload
+    (:func:`_batch_memory`, :func:`_assemble`).  It runs on the feed
+    thread, on the feed's stream.  Returns the dict and its keys batch by
+    batch.
 
     The feed (one worker thread, :func:`_pipeline_depth` batches in flight)
-    loads each batch (decodes files: cv2 releases the GIL), uploads it,
+    loads each batch (decodes files: cv2 releases the GIL; stacks frames
+    into page-locked memory), uploads it,
     thresholds it and finds its candidates (:meth:`_Program.feed`).  The
     calling thread drains in batch order (:meth:`_Program.drain`): detect
     and PnP, then batch i's result enters the dict after
@@ -1045,7 +1134,9 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
     device (the caller's, which under ``mesh=`` need not be ``cuda:0``) and
     a stream of its own: on the shared default stream the masks' fetch
     would queue behind the drain's PnP.  The feed stream first waits for
-    the caller's stream (frames the caller queued on the card).  The drain
+    the caller's stream (frames the caller queued on the card); the
+    loader runs on it too, so a stack of frames on the card is ordered
+    before the upload and threshold that read it.  The drain
     waits on each batch's event and records the feed's tensors on its own
     stream (:meth:`_Program.drain`).  :class:`PhaseTimer` synchronizes the
     calling thread's stream only, so the stages do not wait for each
@@ -1080,24 +1171,15 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
         feed_stream = torch.cuda.Stream(dev)
         feed_stream.wait_stream(torch.cuda.current_stream(dev))
 
-    def feed(bi, load) -> _Fed:
-        with timer.in_batch(bi):
-            files, cams, gray = load()
-            nb = len(files)
-            if nb < B:
-                pad = B - nb
-                if isinstance(gray, torch.Tensor):
-                    gray = torch.cat([gray, gray[-1:].expand(pad, *gray.shape[1:])])
-                else:
-                    gray = np.concatenate([gray, np.repeat(gray[-1:], pad, axis=0)])
-                cams = list(cams) + [cams[-1]] * pad
-            lo = rank * Bs
-            files, cams, gray = files[lo:lo + Bs], cams[lo:lo + Bs], gray[lo:lo + Bs]
-            nb = max(0, min(nb - lo, Bs))
-            if feed_stream is None:
-                return program.feed(files, cams, nb, gray, timer)
-            with torch.cuda.device(dev), torch.cuda.stream(feed_stream):
-                return program.feed(files, cams, nb, gray, timer)
+    def feed(bi, idx) -> _Fed:
+        nb, lo = len(idx), rank * Bs
+        with timer.in_batch(bi), contextlib.ExitStack() as on_feed_stream:
+            if feed_stream is not None:
+                on_feed_stream.enter_context(torch.cuda.device(dev))
+                on_feed_stream.enter_context(torch.cuda.stream(feed_stream))
+            files, cams, gray = load(idx, _share(nb, lo, Bs))
+            cams = [cams[min(r, nb - 1)] for r in range(lo, lo + Bs)]
+            return program.feed(files[lo:lo + Bs], cams, max(0, min(nb - lo, Bs)), gray, timer)
 
     def consume(bi, files, cams, nb, fetched: _Fetched):
         nonlocal total
@@ -1125,14 +1207,14 @@ def _edges(loads, B, program: _Program, timer: PhaseTimer, verbose: bool,
 
     ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vican-feed")
     try:
-        futs = deque(ex.submit(feed, bi, load) for bi, load in enumerate(loads[:depth]))
+        futs = deque(ex.submit(feed, bi, idx) for bi, idx in enumerate(batches[:depth]))
         pending = None
-        for bi in range(len(loads)):
+        for bi in range(len(batches)):
             with timer.in_batch(bi):
                 with timer.phase("wait for feed", stage="drain", host_only=True):
                     fed = futs.popleft().result()
-                if bi + depth < len(loads):
-                    futs.append(ex.submit(feed, bi + depth, loads[bi + depth]))
+                if bi + depth < len(batches):
+                    futs.append(ex.submit(feed, bi + depth, batches[bi + depth]))
                 fetched = program.drain(fed, timer)
             if pending is not None:
                 with timer.in_batch(pending[0]):
@@ -1233,19 +1315,21 @@ def estimate_pose_gray(
                                  f"{tuple(f.shape)}, not a 2-D uint8 frame")
         sizes = [tuple(f.shape) for f in gray]
 
-    def load(idx):
-        """One batch: an array's slice (its batches are contiguous), or one
-        stack of a sequence's frames."""
+    def load(idx, share):
+        """One batch: an array's slice (its batches are contiguous), which
+        the upload assembles; or one stack of a sequence's frames into the
+        batch's memory, pad and all (:func:`_assemble`)."""
         files, bcams = [im_filenames[i] for i in idx], [cams[i] for i in idx]
+        ids = idx[share]
         if array:
-            return files, bcams, gray[idx[0]:idx[-1] + 1]
+            return files, bcams, gray[ids[0]:ids[-1] + 1]
         with timer.phase("stack", stage="feed", host_only=True) as counts:
-            batch = torch.stack([gray[i] for i in idx])
+            frames = [gray[i] for i in ids]
+            batch = _assemble(frames, _batch_memory((B, *frames[0].shape), device, frames[0]))
             counts.update(height=batch.shape[1], width=batch.shape[2], frames=len(idx))
         return files, bcams, batch
 
-    loads = [functools.partial(load, idx) for idx in _group_batches(sizes, B)]
-    return _edges(loads, B, program, timer, verbose)[0]
+    return _edges(load, _group_batches(sizes, B), B, program, timer, verbose)[0]
 
 
 def estimate_pose_batched(
@@ -1309,10 +1393,13 @@ def estimate_pose_batched(
     B = -(-batch_size // world) * world
     gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
 
-    def load(idx):
+    def load(idx, share):
         """Decode, check and preprocess one batch (JAX's ``prepare``,
         vican_tpu/perception.py:1325-1363); runs on the feed thread, its
-        files decoded on ``pool``."""
+        files decoded on ``pool``.  The preprocess writes the rank's share
+        of the gray frames into the batch's memory, pad and all
+        (:func:`_batch_memory`); gray frames are handed on as decoded, the
+        rank's share of them, for the upload to assemble."""
         files, bcams = [im_filenames[i] for i in idx], [cams[i] for i in idx]
         with timer.phase("decode", stage="feed", host_only=True) as counts:
             images = _decode_batch(pool, files, gray_direct, counts)
@@ -1326,14 +1413,18 @@ def estimate_pose_batched(
                 "actual image size"
             )
         if gray_direct:
-            return files, bcams, images
+            return files, bcams, images[share]
         with timer.phase("preprocess", stage="feed", host_only=True) as counts:
-            gray = host_preprocess(images, float(brightness), float(contrast), counts)
+            frames = images[share]
+            gray = _batch_memory((B // world, *frames.shape[1:3]), device)
+            host_preprocess(frames, float(brightness), float(contrast), counts,
+                            out=gray[:len(frames)].numpy())
+            _pad(gray, len(frames))
         return files, bcams, gray
 
-    loads = [functools.partial(load, idx) for idx in _group_batches(res_keys, B)]
+    batches = _group_batches(res_keys, B)
     with ThreadPoolExecutor(_host_threads(B), thread_name_prefix="vican-decode") as pool:
         if mesh is None:
-            return _edges(loads, B, program, timer, verbose)[0]
-        out, order = _edges(loads, B, program, timer, verbose, part=(rank, world))
+            return _edges(load, batches, B, program, timer, verbose)[0]
+        out, order = _edges(load, batches, B, program, timer, verbose, part=(rank, world))
     return _gather_edges(mesh, out, order)
