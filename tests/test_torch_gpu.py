@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_bars import (CELLS, CUBE_KW, MV_REL_TOL, PNP_MARKER, PNP_MEDIAN_TOL, PNP_TOL,
-                        PWR_REL_TOL, detect_gaps, detect_ok, filter_problem, p_first_batch,
-                        pnp_gaps, pnp_slots, rendered_640, thin_mv_cases)
+from torch_bars import (CELLS, CUBE_KW, MV_REL_TOL, P_KW, PNP_MARKER, PNP_MEDIAN_TOL,
+                        PNP_TOL, PWR_REL_TOL, detect_gaps, detect_ok, filter_problem,
+                        p_first_batch, p_frames, pnp_gaps, pnp_slots, rendered_640,
+                        thin_mv_cases)
 from vican_torch import bipgo, render
 from vican_torch.cam import Camera
 from vican_torch.geometry import distance_SO3
@@ -958,6 +959,40 @@ def test_a_second_capture_allocates_no_pinned_memory(rig):
     before = torch.cuda.host_memory_stats()["num_host_alloc"]
     estimate_pose_gray(host, names, cams, **kw)
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+
+
+@pytest.mark.gpu
+def test_colour_files_on_the_card_give_the_edges_of_their_preprocessed_frames(cuda, tmp_path):
+    """P's first 32 frames (1280x720) written as colour JPEG files, quality
+    95, as the `.jpeg` cell writes them: the file entry at brightness -150
+    and contrast 120 (each decode task maps its file and converts it to
+    gray into the batch's page-locked memory) gives, bit for bit, the edges
+    of ``estimate_pose_gray`` of ``host_preprocess(load_images(files),
+    -150, 120)`` on the card: keys, corners, poses and errors.  Its batches
+    of 12, the last padded from 8, count those frames in ``table_frames``
+    and are uploaded from page-locked memory."""
+    import cv2
+
+    from vican_torch.perception import estimate_pose_batched, host_preprocess, load_images
+
+    frames, names, frame_cams = p_frames(cuda)
+    files = []
+    for img, name in zip(frames.cpu().numpy(), names):
+        files.append(str(tmp_path / name.replace("/", "_")))
+        assert cv2.imwrite(files[-1], cv2.cvtColor(img, cv2.COLOR_GRAY2BGR),
+                           [cv2.IMWRITE_JPEG_QUALITY, 95])
+    kw = dict(P_KW, batch_size=12)
+    ref = estimate_pose_gray(host_preprocess(load_images(files), -150.0, 120.0), files,
+                             frame_cams, **kw)
+    timer = PhaseTimer(verbose=False, device=cuda)
+    out = estimate_pose_batched(files, frame_cams, brightness=-150, contrast=120, timer=timer,
+                                **kw)
+    assert len(ref) > 100
+    _assert_identical(ref, out)
+    decodes = sorted((e for e in timer.events if e["name"] == "decode"),
+                     key=lambda e: e["batch"])
+    assert [e["table_frames"] for e in decodes] == [12, 12, 8]
+    assert _uploads(timer) == [(b, 720, 1280, 1, 12 * 720 * 1280) for b in range(3)]
 
 
 @pytest.mark.gpu

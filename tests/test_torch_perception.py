@@ -397,6 +397,44 @@ def test_pooled_decode_raises_what_one_imread_at_a_time_raised(tmp_path, fault):
     assert not _decode_threads()
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["colour, in the tasks", "gray"])
+@pytest.mark.parametrize("fault", ["missing file", "two sizes", "declared resolution"])
+def test_the_file_entry_raises_what_decode_then_preprocess_raised(tmp_path, fault, fused):
+    """Colour files with a brightness and a contrast (each decode task also
+    maps its file and converts it to gray) and gray files alike: a missing
+    file (later files also of another size) raises ``load_images``'
+    FileNotFoundError, a batch of two sizes its ValueError, and cameras
+    that declare another size than their files decode to the
+    declared-resolution ValueError, word for word; no decode or feed thread
+    is left."""
+    from vican_torch.geometry import SE3 as TSE3
+
+    files = _jpegs(str(tmp_path), [(72, 96)] * 5 + [(96, 72)] * 4)
+    W, H = 96, 72
+    if fault == "missing file":
+        files[3] = os.path.join(str(tmp_path), "missing.jpg")
+    if fault == "declared resolution":
+        files, (W, H) = files[:5], (72, 96)
+        expected = (f"camera '0' declares resolution 72x96 but {files[0]!r} decodes to 96x72 "
+                    "— fix the camera record, or leave resolution_x/y as None to group by "
+                    "actual image size")
+        kind = ValueError
+    else:
+        with pytest.raises((FileNotFoundError, ValueError)) as ref:
+            TP.load_images(files, grayscale=not fused)
+        expected, kind = str(ref.value), type(ref.value)
+    cams = [TC.Camera(id=str(i), intrinsics=np.eye(3), distortion=np.zeros(12),
+                      extrinsics=TSE3(pose=np.eye(4)), resolution_x=W, resolution_y=H)
+            for i in range(len(files))]
+    b, c = (-150, 120) if fused else (0, 0)
+    with pytest.raises(kind) as out:
+        TP.estimate_pose_batched(files, cams, device="cpu",
+                                 **dict(KW, batch_size=len(files), brightness=b, contrast=c))
+    assert type(out.value) is kind and str(out.value) == expected
+    assert not _decode_threads()
+    assert not [t for t in threading.enumerate() if t.name.startswith("vican-feed")]
+
+
 @pytest.mark.parametrize("brightness,contrast", [(-150, 120), (0, 0), (30, -40)])
 def test_host_preprocess_of_gray_frames_needs_no_opencv(monkeypatch, brightness, contrast):
     """Gray (N, H, W) frames go through the brightness/contrast transform

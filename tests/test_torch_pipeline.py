@@ -7,6 +7,7 @@ package's module, the lock around the port's C builds, and the timer's
 stages."""
 import copy
 import os
+import sys
 import threading
 
 import numpy as np
@@ -26,8 +27,8 @@ from vican_torch.ops.threshold import multi_threshold
 from vican_torch.utils import PhaseTimer
 from test_torch_jax_native import jax_native  # noqa: F401  (autouse: JAX's C modules)
 from test_torch_perception import (KW, MARKER_SIZE, _assert_identical_edges,
-                                   _assert_same_edges, _cams, _decode_threads, _port_cams,
-                                   _traj)
+                                   _assert_same_edges, _cams, _decode_threads, _jpegs,
+                                   _port_cams, _traj)
 from torch_threads import two_threads  # noqa: F401
 
 DRAIN = {"wait for feed", "detect program", "PnP", "dict"}
@@ -144,6 +145,85 @@ def test_a_batch_assembled_into_a_given_buffer_has_the_old_bytes(tmp_path, sourc
         out = TP._assemble(decoded[share], given)
     assert out is given
     np.testing.assert_array_equal(given.numpy(), old)
+
+
+@pytest.mark.parametrize("brightness,contrast", [(-150, 120), (30, -40)])
+@pytest.mark.parametrize("nb,B,world,rank", [(5, 5, 1, 0), (3, 5, 1, 0), (5, 6, 2, 0),
+                                             (5, 6, 2, 1), (3, 6, 3, 1), (2, 6, 3, 2)],
+                         ids=["whole batch", "tail pad", "rank share", "rank share, padded",
+                              "rank share, one real frame", "rank share, all pad"])
+def test_the_decode_tasks_write_the_preprocessed_bytes(tmp_path, nb, B, world, rank,
+                                                       brightness, contrast):
+    """Colour JPEG files decoded on a pool with the preprocess in each
+    file's task (``perception._decode_gray`` into the rank's rows of a given
+    batch, then ``_pad``): the bytes of ``host_preprocess(load_images(files),
+    b, c)`` padded to ``B`` with copies of the last frame, the rank's
+    ``B / world`` rows, and those of the JAX package's ``host_preprocess``
+    of the same decode; every byte of the batch written, on a pool of more
+    threads than cores; ``table_frames`` counts the rank's frames, the
+    other files only decoded."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vican_tpu.perception import host_preprocess as jax_preprocess
+
+    files = _jpegs(str(tmp_path), [(40, 56)] * nb)
+    decoded = TP.load_images(files)
+    ref = TP.host_preprocess(decoded, float(brightness), float(contrast))
+    np.testing.assert_array_equal(ref, jax_preprocess(decoded, float(brightness),
+                                                      float(contrast)))
+    ref = np.concatenate([ref, np.repeat(ref[-1:], B - nb, axis=0)])
+    Bs = B // world
+    ref = ref[rank * Bs:(rank + 1) * Bs]
+    share = TP._share(nb, rank * Bs, Bs)
+    table = TP._contrast_brightness(np.arange(256, dtype=np.uint8), float(brightness),
+                                    float(contrast))
+    given = torch.full((Bs, 40, 56), 7, dtype=torch.uint8)
+    counts = {}
+    # more threads than cores, switching every microsecond
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(2 * len(os.sched_getaffinity(0)) + 1) as pool:
+            shape, frames = TP._decode_gray(pool, files, table, share, given.numpy(), counts)
+    finally:
+        sys.setswitchinterval(interval)
+    assert shape == (40, 56, 3)
+    assert counts["table_frames"] == len(frames) == len(range(nb)[share])
+    assert counts["files"] == nb
+    assert all(np.shares_memory(f, given.numpy()) for f in frames)
+    assert TP._pad(given, len(frames)) is given
+    np.testing.assert_array_equal(given.numpy(), ref)
+
+
+@pytest.mark.parametrize("probe", ["declared", "probed", "probed wrong"])
+@pytest.mark.parametrize("brightness,contrast", [(-150, 120), (-10, 10)])
+@pytest.mark.parametrize("batch_size", [2, 4], ids=["3 batches", "padded tail"])
+def test_colour_files_give_the_edges_of_their_preprocessed_frames(rendered, monkeypatch,
+                                                                  batch_size, brightness,
+                                                                  contrast, probe):
+    """The file entry with a brightness and a contrast gives, key for key
+    and bit for bit, ``estimate_pose_gray`` of ``host_preprocess(
+    load_images(files), b, c)``: with declared resolutions, with sizes
+    probed from the files, and with a probe that reads another size than
+    the decode (its batches restacked at the decoded size)."""
+    files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
+    kw = dict(KW, batch_size=batch_size)
+    del kw["brightness"], kw["contrast"]
+    gray = TP.host_preprocess(TP.load_images(files), float(brightness), float(contrast))
+    ref = TP.estimate_pose_gray(gray, files, cams, device="cpu", **kw)
+    if probe != "declared":
+        cams = [copy.copy(c) for c in cams]
+        for c in cams:
+            c.resolution_x = c.resolution_y = None
+    if probe == "probed wrong":
+        monkeypatch.setattr(TP, "_probe_image_size", lambda fn: (352, 648))
+    timer = PhaseTimer(verbose=False, device="cpu")
+    out = TP.estimate_pose_batched(files, cams, device="cpu", timer=timer,
+                                   brightness=brightness, contrast=contrast, **kw)
+    assert len(ref) > 5
+    _assert_identical_edges(ref, out)
+    assert {(e["height"], e["width"]) for e in timer.events if e["name"] == "upload"} == {
+        (360, 640)}
 
 
 def test_wrong_resolution_raises_from_the_worker(rendered):
@@ -263,7 +343,10 @@ def test_every_decode_counts_its_files_and_workers(rendered, batch_size, frames,
     """Every batch's "decode" event counts in ``files`` the batch's frames,
     the short last one's too, and in ``workers`` the threads that decoded
     them, between 1 and one a core or a file; colour and straight-to-gray
-    decodes alike, and the call leaves no decode thread behind."""
+    decodes alike, and the call leaves no decode thread behind.  In
+    ``table_frames`` it counts the frames its tasks sent through the
+    preprocess's table: every frame of a colour batch, none of a gray
+    one."""
     files, cams = rendered.im_data["filename"], _port_cams(rendered.im_data["cam"])
     timer = PhaseTimer(verbose=False, trace=True, device="cpu")
     TP.estimate_pose_batched(files, cams, device="cpu", timer=timer,
@@ -273,6 +356,7 @@ def test_every_decode_counts_its_files_and_workers(rendered, batch_size, frames,
                     key=lambda e: e["batch"])
     assert [e["batch"] for e in events] == list(range(len(frames)))
     assert [e["files"] for e in events] == frames
+    assert [e["table_frames"] for e in events] == (frames if brightness else [0] * len(frames))
     cores = len(os.sched_getaffinity(0))
     assert all(1 <= e["workers"] <= min(cores, e["files"]) for e in events)
     assert all(e["stage"] == "feed" and e["parent"] is None for e in events)

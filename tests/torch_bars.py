@@ -200,17 +200,12 @@ def rendered_640(dev, timesteps: int, seed: int, pad: int = 0, aruco: str = "DIC
     return frames, names, frame_cams
 
 
-def p_first_batch(dev):
+def p_frames(dev):
     """P's first 32 frames (8 cameras at 1280x720 around a cube of 24
     markers, two of them distorted: the room cells' batch), rendered on
-    ``dev``, and the arguments of the detect program and of the PnP block
-    as ``estimate_pose_gray`` hands them over, copied: ``(frames,
-    detect_args, pnp_args)``.  The wrappers are swapped for spies for the
-    one call; the real wrappers' ``launches`` do not move."""
+    ``dev``: ``(frames, names, frame_cams)``."""
     from vican_torch import render
     from vican_torch.cam import Camera
-    from vican_torch.ops import detect, pnp
-    from vican_torch.perception import estimate_pose_gray
 
     W, H, f = 1280, 720, 0.55 * (1280 + 720)
     K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1.0]])
@@ -222,9 +217,20 @@ def p_first_batch(dev):
                               distortion=P_DIST.copy() if k in (1, 5) else np.zeros(12),
                               extrinsics=render.look_at(pos, (0.0, 0.0, 1.0)),
                               resolution_x=W, resolution_y=H)
-    frames, names, frame_cams = render.render_frames(
+    return render.render_frames(
         cams, render.cube_trajectory(4, seed=4, wander=True), render.make_cube_markers(),
         marker_size=P_MARKER, device=dev)
+
+
+def p_first_batch(dev):
+    """:func:`p_frames` and the arguments of the detect program and of the
+    PnP block as ``estimate_pose_gray`` hands them over, copied:
+    ``(frames, detect_args, pnp_args)``.  The wrappers are swapped for
+    spies for the one call; the real wrappers' ``launches`` do not move."""
+    from vican_torch.ops import detect, pnp
+    from vican_torch.perception import estimate_pose_gray
+
+    frames, names, frame_cams = p_frames(dev)
     seen, real = {}, {}
     for module, name in ((detect, "detect_candidates"), (pnp, "pnp_block")):
         def spy(*args, name=name):

@@ -139,32 +139,22 @@ def load_images(filenames: Iterable[str], grayscale: bool = False) -> np.ndarray
         return _decode_batch(pool, files, grayscale)
 
 
-def _decode_batch(pool: ThreadPoolExecutor, files: list[str], grayscale: bool,
-                  counts: dict | None = None) -> np.ndarray:
-    """:func:`load_images` of ``files`` on ``pool``: one ``cv.imread`` a
-    file (it releases the GIL), each written into its slot of one batch
-    that the first decoded frame shapes.  Every task ends before the call
-    returns or raises; a file that does not decode raises
-    ``FileNotFoundError`` (the first in the batch's order), then a batch of
-    mixed shapes ``ValueError``.  ``counts`` (a phase's fields) gets
-    ``files`` and ``workers``, the pool's threads that decoded them."""
+def _decode_each(pool: ThreadPoolExecutor, files: list[str], flag: int, store,
+                 counts: dict | None = None) -> tuple:
+    """One ``cv.imread(file, flag)`` a file on ``pool`` (it releases the
+    GIL), each decoded frame handed to ``store(i, frame)`` in its own task.
+    Every task ends before the call returns or raises; a file that does not
+    decode raises ``FileNotFoundError`` (the first in the batch's order),
+    then a batch of mixed shapes ``ValueError``.  ``counts`` (a phase's
+    fields) gets ``files`` and ``workers``, the pool's threads that decoded
+    them.  Returns the frames' shape."""
     import cv2 as cv
 
-    flag = cv.IMREAD_GRAYSCALE if grayscale else cv.IMREAD_COLOR
-    lock = threading.Lock()
-    batch = None
-
     def decode(i):
-        nonlocal batch
         im = cv.imread(files[i], flag)
         if im is None:
             return None, threading.get_ident()
-        with lock:
-            if batch is None:
-                batch = np.empty((len(files), *im.shape), im.dtype)
-            fits = im.shape == batch.shape[1:]
-        if fits:
-            batch[i] = im
+        store(i, im)
         return im.shape, threading.get_ident()
 
     futs = [pool.submit(decode, i) for i in range(len(files))]
@@ -184,7 +174,61 @@ def _decode_batch(pool: ThreadPoolExecutor, files: list[str], grayscale: bool,
             "undeclared resolution are grouped by actual image size "
             "automatically (see estimate_pose_batched)."
         )
+    return shapes.pop()
+
+
+def _decode_batch(pool: ThreadPoolExecutor, files: list[str], grayscale: bool,
+                  counts: dict | None = None) -> np.ndarray:
+    """:func:`load_images` of ``files`` on ``pool`` (:func:`_decode_each`):
+    each frame written into its slot of one batch that the first decoded
+    frame shapes."""
+    import cv2 as cv
+
+    lock = threading.Lock()
+    batch = None
+
+    def store(i, im):
+        nonlocal batch
+        with lock:
+            if batch is None:
+                batch = np.empty((len(files), *im.shape), im.dtype)
+            fits = im.shape == batch.shape[1:]
+        if fits:
+            batch[i] = im
+
+    _decode_each(pool, files, cv.IMREAD_GRAYSCALE if grayscale else cv.IMREAD_COLOR, store,
+                 counts)
     return batch
+
+
+def _decode_gray(pool: ThreadPoolExecutor, files: list[str], table: np.ndarray, rows: slice,
+                 out: np.ndarray, counts: dict | None = None) -> tuple[tuple, list]:
+    """The colour decode of ``files`` on ``pool`` (:func:`_decode_each`)
+    with :func:`host_preprocess`'s work done in each file's own task, on
+    its pixels while they are in cache: the frames at ``rows`` (a slice of
+    the batch's positions) go through ``table`` (the preprocess's 256
+    bytes) in place, then ``cv.cvtColor`` BGR2GRAY straight into their row
+    of ``out`` (uint8 ``(n, H, W)``, at least one row a frame), the bytes of
+    ``host_preprocess(load_images(files)[rows], ...)``.  The other files
+    are decoded for the batch's checks alone.  A frame of another size than
+    ``out``'s rows goes into gray memory of its own.  ``counts`` gets
+    ``table_frames``, the frames sent through the table.  Returns the
+    frames' shape and the gray frames, in row order (views of ``out``
+    where they fit)."""
+    import cv2 as cv
+
+    gray = [None] * (rows.stop - rows.start)
+
+    def store(i, im):
+        if rows.start <= i < rows.stop:
+            row = out[i - rows.start] if im.shape[:2] == out.shape[1:] else None
+            cv.LUT(im, table, dst=im)
+            gray[i - rows.start] = cv.cvtColor(im, cv.COLOR_BGR2GRAY, dst=row)
+
+    shape = _decode_each(pool, files, cv.IMREAD_COLOR, store, counts)
+    if counts is not None:
+        counts["table_frames"] = len(gray)
+    return shape, gray
 
 
 def _probe_image_size(fn: str) -> tuple[int, int]:
@@ -1365,8 +1409,13 @@ def estimate_pose_batched(
     groups in first-seen order, and every group's batches run in turn
     through one pipeline: the dict is the union of one call per group.
     The feed decodes a batch's files on a pool of :func:`_host_threads`
-    threads that the call makes and shuts down (:func:`_decode_batch`; the
-    "decode" phase counts its ``files`` and ``workers``).
+    threads that the call makes and shuts down; with a brightness or a
+    contrast each task also sends its file through the preprocess's table
+    and to gray, into the batch's memory (:func:`_decode_gray`; else
+    :func:`_decode_batch` decodes straight to gray).  The "decode" phase
+    counts its ``files``, ``workers`` and ``table_frames`` (the frames
+    transformed in the tasks: the rank's share, or 0); "preprocess" pads
+    the batch and counts the same ``table_frames``.
     Returns the reference edge dict.
     """
     mode = _resolve_mode(pipeline_mode)
@@ -1392,34 +1441,46 @@ def estimate_pose_batched(
     timer = timer or PhaseTimer(verbose=False, device=device)
     B = -(-batch_size // world) * world
     gray_direct = float(brightness) == 0.0 and float(contrast) == 0.0
+    table = _contrast_brightness(np.arange(256, dtype=np.uint8), float(brightness),
+                                 float(contrast))
 
     def load(idx, share):
         """Decode, check and preprocess one batch (JAX's ``prepare``,
         vican_tpu/perception.py:1325-1363); runs on the feed thread, its
-        files decoded on ``pool``.  The preprocess writes the rank's share
-        of the gray frames into the batch's memory, pad and all
-        (:func:`_batch_memory`); gray frames are handed on as decoded, the
-        rank's share of them, for the upload to assemble."""
+        files decoded on ``pool``.  Colour files (a brightness or contrast)
+        are decoded, sent through the preprocess's table and converted to
+        gray in each file's task, the rank's share straight into the
+        batch's memory (:func:`_decode_gray`, :func:`_batch_memory`, made
+        here at the group's size), which "preprocess" then pads.  Gray
+        files are handed on as decoded, the rank's share of them, for the
+        upload to assemble."""
         files, bcams = [im_filenames[i] for i in idx], [cams[i] for i in idx]
-        with timer.phase("decode", stage="feed", host_only=True) as counts:
-            images = _decode_batch(pool, files, gray_direct, counts)
+        if gray_direct:
+            with timer.phase("decode", stage="feed", host_only=True) as counts:
+                images = _decode_batch(pool, files, True, counts)
+                counts["table_frames"] = 0
+            shape = images.shape[1:]
+        else:
+            gray = _batch_memory((B // world, *map(int, res_keys[idx[0]])), device)
+            with timer.phase("decode", stage="feed", host_only=True) as counts:
+                shape, frames = _decode_gray(pool, files, table, share, gray.numpy(), counts)
         decl = res_of(bcams[0])
-        if None not in decl and tuple(images.shape[1:3]) != decl:
+        if None not in decl and tuple(shape[:2]) != decl:
             raise ValueError(
                 f"camera {bcams[0].id!r} declares resolution "
                 f"{decl[1]}x{decl[0]} but {files[0]!r} decodes to "
-                f"{images.shape[2]}x{images.shape[1]} — fix the camera "
+                f"{shape[1]}x{shape[0]} — fix the camera "
                 "record, or leave resolution_x/y as None to group by "
                 "actual image size"
             )
         if gray_direct:
             return files, bcams, images[share]
         with timer.phase("preprocess", stage="feed", host_only=True) as counts:
-            frames = images[share]
-            gray = _batch_memory((B // world, *frames.shape[1:3]), device)
-            host_preprocess(frames, float(brightness), float(contrast), counts,
-                            out=gray[:len(frames)].numpy())
-            _pad(gray, len(frames))
+            counts["table_frames"] = len(frames)
+            if tuple(shape[:2]) == tuple(gray.shape[1:]):
+                _pad(gray, len(frames))
+            else:  # the size probed from the files' headers is not the decoded one
+                gray = _assemble(frames, _batch_memory((len(gray), *shape[:2]), device))
         return files, bcams, gray
 
     batches = _group_batches(res_keys, B)
